@@ -4,13 +4,12 @@ Runs the reference's poisson.in default (17^2, 2 grids, V(3,3);
 /root/reference/poisson.in) plus a matrix of cycle variants and records
 the full normalized residual histories and the eData error norms
 (reference: src/solver.c:1211-1237, 1549-1557) into
-benchmarks/results/convergence_r05.json — convergence parity pinned by
-committed data, not only by the test suite.
+results/convergence.json.
 
-Runs on any platform (CPU or the attached chip); histories are
-deterministic for fixed config + platform dtype semantics.
+Runs on any platform (CPU or a card); histories are deterministic for
+fixed config + platform dtype semantics.
 
-Usage: PYTHONPATH=/root/repo python benchmarks/record_convergence.py
+Usage (from the repository root): python benchmarks/record_convergence.py
 """
 
 from __future__ import annotations
@@ -19,15 +18,12 @@ import json
 from pathlib import Path
 
 import jax
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/mgtpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 import numpy as np
 
 from multigrid_petsc_tpu.mesh import MeshType
 from multigrid_petsc_tpu.postprocess import error_norms
 from multigrid_petsc_tpu.solvers.solve import solve
+from multigrid_petsc_tpu.utils import runtime
 from multigrid_petsc_tpu.utils.config import (
     CycleType,
     SmootherType,
@@ -66,6 +62,7 @@ def main() -> None:
     # Jacobi/Chebyshev smoothers, so histories are framework-defining
     # records, not bit-comparisons against PETSc; the CONTRACT pinned here
     # is h^2 discretization error + grid-independent V-cycle rates.
+    runtime.configure()
     runs = []
     base = dict(npts=17, grids=2, levels=2, v=(3, 3), rtol=1e-7,
                 max_iter=200, dtype="float64")
@@ -112,7 +109,7 @@ def main() -> None:
               f"errL2={rec['error_l2']:.3e}", flush=True)
         out["records"].append(rec)
 
-    path = Path("benchmarks/results/convergence_r05.json")
+    path = Path("results/convergence.json")
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(out, indent=1))
     print(f"wrote {path}")

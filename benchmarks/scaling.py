@@ -1,12 +1,11 @@
 """Weak/strong/size scaling study over a device mesh.
 
-BASELINE.md asks for nnz/s per chip and weak-scaling efficiency at
-1 chip / 1 host / N hosts.  With one physical chip available, this
-harness runs the REAL distributed code path over however many devices
-the backend exposes — virtual CPU devices for functional scaling
-validation (methodology note: virtual devices share one host's cores, so
-CPU "efficiency" numbers validate the communication structure, not
-hardware scaling), real chips when a slice is attached.  Usage:
+BASELINE.md asks for nnz/s per card and weak-scaling efficiency at
+1 card / 1 host / N hosts.  This harness runs the REAL distributed code
+path over however many devices the backend exposes — virtual CPU devices
+for functional validation (virtual devices share one host's cores, so CPU
+"efficiency" numbers validate the communication structure, not hardware
+scaling), real cards when they are attached.  Usage:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python benchmarks/scaling.py --npts 513 --mode weak --plan blocks
@@ -15,11 +14,10 @@ Modes:
   weak   — problem grows with device count (constant points/device)
   strong — fixed problem, growing device count
   size   — single device, growing problem size (the roofline-saturation
-           curve on the real chip: points/s should rise to the HBM
-           plateau as dispatch latency amortizes)
+           curve on a card: points/s should rise to the memory-bandwidth
+           plateau as launch latency amortizes)
 
-Plans: blocks (2-D GSPMD) | rows (1-D row partition + distributed fused
-Pallas kernels where eligible).
+Plans: blocks (2-D GSPMD) | rows (1-D row partition, GSPMD).
 
 Reports one JSON line per run with points/s and efficiency relative to
 the base run.
@@ -34,11 +32,11 @@ import sys
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/mgtpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from multigrid_petsc_tpu.utils import runtime
 
-# --platform cpu must take effect BEFORE backend init; the env var alone
-# is not honored under hardware plugins (see tests/conftest.py).
+runtime.configure()
+
+# --platform cpu must take effect BEFORE backend init.
 if "--platform" in sys.argv:
     _plat = sys.argv[sys.argv.index("--platform") + 1]
     if _plat == "cpu":
@@ -63,22 +61,17 @@ def run_one(npts: int, n_dev: int, cycle: str, dtype: str, max_iter: int,
     levels = 1
     while (npts - 1) % (2**levels) == 0 and (npts - 1) // (2**levels) > 4:
         levels += 1
-    backend = "auto"
     plan = None
     if n_dev > 1:
         devices = jax.devices()[:n_dev]
         if plan_kind == "rows":
             plan = row_plan(devices=devices, min_local=16)
-            # Off-TPU the distributed fused kernels need the explicit
-            # pallas opt-in (interpreter mode).
-            backend = "pallas"
         else:
             plan = ShardingPlan(make_device_mesh(devices=devices),
                                 min_local=16)
     cfg = SolverConfig(
         npts=npts, grids=levels, levels=levels,
         cycle=CycleType[cycle], dtype=dtype, max_iter=max_iter, rtol=1e-5,
-        backend=backend,
     )
     res = solve(cfg, plan=plan, timed=True)
     n = npts - 2
@@ -154,9 +147,7 @@ def main():
         if jax.devices()[0].platform == "cpu":
             note = ("virtual CPU devices share one host's cores: these "
                     "efficiencies validate the distributed code path "
-                    "(shard_map/halo/collectives), NOT hardware scaling; "
-                    "see PERFORMANCE.md scaling model for the predictive "
-                    "multi-chip estimate")
+                    "(sharding/halo/collectives), NOT hardware scaling")
         out.write_text(json.dumps(
             {"mode": args.mode, "plan": args.plan,
              "device": str(jax.devices()[0]), "note": note,

@@ -7,7 +7,7 @@ into the last level (src/matbuild.c:27-47: GridId).  Grid g has
 (npts-1)/2^g - 1 interior points per dimension (src/matbuild.c:64-67) and
 computational spacing h = 1/(n+1) (src/matbuild.c:99-104).
 
-TPU-native redesign: there are no global index maps or row ranges — a grid
+Redesign: there are no global index maps or row ranges — a grid
 is just a dense (ny, nx) array and a level state is a tuple of per-grid
 arrays.  The reference's three composite-ordering styles
 (src/matbuild.c:146-323) existed to lay out one flat distributed vector;

@@ -7,7 +7,7 @@ Capability parity with the reference mesh module (reference: src/mesh.c):
   * per-point metric coefficients of the coordinate transform used by the
     discrete operator (src/mesh.c:29-107).
 
-TPU-native redesign: coordinates and metrics are evaluated analytically and
+Redesign: coordinates and metrics are evaluated analytically and
 vectorized with jnp at whatever points a grid needs — there is no stored
 fine-mesh array that coarse grids index into.  A coarse grid point (i, j) of
 grid g sits at computational coordinate xi = (j+1)/(n_g+1), eta = (i+1)/(n_g+1)

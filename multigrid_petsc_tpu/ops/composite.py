@@ -8,7 +8,7 @@ operator) and A_h*P (finer operator times prolongation)
 src/solver.c:347-487 fillProlongationPortion, assembled variants
 levelMatrixA/A1/A2 at src/solver.c:489-556).
 
-TPU-native redesign: the composite matrix is never formed.  A composite
+Redesign: the composite matrix is never formed.  A composite
 state is a tuple of per-grid arrays and the coupled matvec is composed from
 matrix-free pieces:
 

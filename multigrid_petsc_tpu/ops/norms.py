@@ -5,7 +5,7 @@ levels, several for composite "merged grid" levels).  Norms flatten across
 all grids — matching the reference's VecNorm over the whole composite
 vector (e.g. src/solver.c:1512, 2237).
 
-Accumulation dtype is configurable: on TPU, f32 data with f64 accumulation
+Accumulation dtype is configurable: f32 data with f64 accumulation
 keeps norms/dots accurate enough for 1e-8 stopping tests while the heavy
 stencil work stays in f32.
 """
@@ -13,6 +13,13 @@ stencil work stays in f32.
 from __future__ import annotations
 
 import jax.numpy as jnp
+from jax import lax
+
+
+def vdot(x, y):
+    """<x, y> at HIGHEST precision: on the GPU an f32 dot may otherwise
+    round its inputs to TF32 (about three decimal digits)."""
+    return jnp.vdot(x, y, precision=lax.Precision.HIGHEST)
 
 
 def tree_dot(xs, ys, acc_dtype=None):
@@ -21,7 +28,7 @@ def tree_dot(xs, ys, acc_dtype=None):
         if acc_dtype is not None:
             x = x.astype(acc_dtype)
             y = y.astype(acc_dtype)
-        s = jnp.vdot(x, y)
+        s = vdot(x, y)
         total = s if total is None else total + s
     return total
 

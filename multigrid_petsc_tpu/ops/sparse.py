@@ -5,37 +5,44 @@ SpMV" alongside matrix-free): the level operator — including composite
 merged-grid coupling blocks — is assembled into CSR by the native C++
 engine (native/csr_assemble.cpp, the framework's graph-builder analogue of
 the reference's fill* assembly, src/solver.c:185-556), then converted to a
-fixed-width sliced-ELL layout for the TPU SpMV.
+fixed-width ELL layout for the SpMV.
 
-ELL on TPU: vals (N, K) and cols (N, K) with -1 padding; SpMV is K gathers
-+ a row sum.  Gathers are not the TPU's fast path — the matrix-free
-stencil kernels remain the production path — but the explicit form is the
-benchmark/parity backend and handles arbitrary row patterns (composite
-couplings included) uniformly.
+ELL: vals (N, K) and cols (N, K) with zero padding; SpMV is K gathers + a
+row sum.  The matrix-free stencil operators remain the production path;
+the explicit form is the parity backend and handles arbitrary row
+patterns (composite couplings included) uniformly.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 import pathlib
 import subprocess
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 _NATIVE_DIR = pathlib.Path(__file__).resolve().parents[2] / "native"
 _LIB_PATH = _NATIVE_DIR / "libmgtpu_native.so"
+_LIB_SRC = _NATIVE_DIR / "csr_assemble.cpp"
 
 
 @functools.cache
 def _load_native():
-    """Build (make) and load the native assembly library."""
-    if not _LIB_PATH.exists():
+    """Build (make, at first use or after a source change) and load the
+    native assembly library.  The build goes to a per-process name and is
+    renamed into place, so concurrent first uses never load a half-written
+    file."""
+    if (not _LIB_PATH.exists()
+            or _LIB_PATH.stat().st_mtime < _LIB_SRC.stat().st_mtime):
+        tmp = f"{_LIB_PATH.name}.{os.getpid()}.tmp"
         subprocess.run(
-            ["make", "-C", str(_NATIVE_DIR)], check=True, capture_output=True
+            ["make", "-C", str(_NATIVE_DIR), f"TARGET={tmp}"],
+            check=True, capture_output=True,
         )
+        os.replace(_NATIVE_DIR / tmp, _LIB_PATH)
     lib = ctypes.CDLL(str(_LIB_PATH))
     lib.level_rows.restype = ctypes.c_int64
     lib.level_rows.argtypes = [
@@ -103,22 +110,15 @@ def csr_to_ell(indptr, indices, data, dtype=np.float64):
 
 
 def ell_spmv(vals: jnp.ndarray, cols: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
-    """y = A x with ELL storage: K gathers + row-sum (jit/TPU compatible)."""
+    """y = A x with ELL storage: K gathers + row-sum."""
     return jnp.sum(vals * x[cols], axis=1)
 
 
 class SparseLevelOp:
-    """Explicit operator over a flattened level state.
-
-    Storage selection: banded matrices (all 1-grid-per-level operators)
-    use DIA + the Pallas shifted-multiply SpMV kernel on TPU
-    (ops/pallas/spmv_dia.py — no gathers, HBM speed-of-light); irregular
-    composite-coupling matrices keep ELL + gather.
-    """
+    """Explicit operator over a flattened level state (ELL storage)."""
 
     def __init__(self, npts, mesh_type, gids, dtype=np.float64,
-                 include_diag=True, include_couplings=True,
-                 backend: str = "auto"):
+                 include_diag=True, include_couplings=True):
         self.gids = tuple(gids)
         self.shapes = [
             ((npts - 1) // 2**g - 1, (npts - 1) // 2**g - 1) for g in gids
@@ -127,47 +127,6 @@ class SparseLevelOp:
                                  include_diag, include_couplings)
         self.nnz = len(csr[1])
         self.vals, self.cols = csr_to_ell(*csr, dtype=dtype)
-        self.dia = None
-        self.stencil_form = None  # Stencil5 of (ny, nx) fields
-        if backend in ("auto", "dia"):
-            from multigrid_petsc_tpu.ops.pallas.spmv_dia import dia_from_csr
-
-            try:
-                offs, dvals = dia_from_csr(*csr)
-                self.dia = (offs, jnp.asarray(dvals, dtype))
-            except ValueError:
-                if backend == "dia":
-                    raise
-        if self.dia is not None and len(self.gids) == 1:
-            # Grid-patterned diagonals {0, +-1, +-nx} ARE a 2-D stencil
-            # with full coefficient fields: the fast Pallas explicit path
-            # (shifts, no lane rotations; see stencil_kernel.
-            # apply_stencil5_field_pallas).
-            from multigrid_petsc_tpu.ops.stencil import Stencil5
-
-            ny, nx = self.shapes[0]
-            offs, dvals = self.dia
-            pattern = {-nx: "cs", -1: "cw", 0: "cc", 1: "ce", nx: "cn"}
-            if set(offs) <= set(pattern):
-                fields = {
-                    name: np.zeros((ny, nx), dtype) for name in pattern.values()
-                }
-                for d, row in zip(offs, dvals):
-                    fields[pattern[d]] = np.asarray(row).reshape(ny, nx)
-                # The stencil kernel's zero-edge column shifts drop any
-                # flat +-1 entry that wraps across a grid-row boundary
-                # (column j=nx-1 -> next row's j=0); such entries cannot
-                # arise from the 5-point Dirichlet assembly, but nothing
-                # upstream enforces that — verify the wrap positions are
-                # empty and keep the general DIA kernel otherwise.
-                no_wrap = (
-                    not fields["ce"][:, -1:].any()
-                    and not fields["cw"][:, :1].any()
-                )
-                if no_wrap:
-                    self.stencil_form = Stencil5(
-                        **{k: jnp.asarray(v) for k, v in fields.items()}
-                    )
 
     def flatten(self, state):
         return jnp.concatenate([x.ravel() for x in state])
@@ -179,36 +138,8 @@ class SparseLevelOp:
             off += ny * nx
         return tuple(out)
 
-    def apply(self, state, force_dia: bool = False):
-        """y = A x.  On TPU banded 32-bit operators run Pallas kernels —
-        the stencil-form field kernel when the diagonals match the grid
-        pattern (fast path), the general DIA kernel otherwise; elsewhere
-        (f64, irregular matrices, CPU) the ELL gather path.  Mosaic
-        silently demotes f64 math, so compiled kernels are gated to
-        itemsize < 8 (same rule as stencil_kernel._x64_scope); f64 on TPU
-        keeps XLA's exact emulated-f64 gather.  ``force_dia`` runs the
-        Pallas path in interpreter mode off-TPU (kernel tests).
-        """
-        on_tpu = (jax.devices()[0].platform == "tpu"
-                  and jnp.dtype(self.vals.dtype).itemsize < 8)
-        if not (on_tpu or force_dia) or self.dia is None:
-            return self.unflatten(
-                ell_spmv(self.vals, self.cols, self.flatten(state))
-            )
-        if self.stencil_form is not None:
-            from multigrid_petsc_tpu.ops.pallas.stencil_kernel import (
-                apply_stencil5_field_pallas,
-            )
-
-            return (
-                apply_stencil5_field_pallas(
-                    self.stencil_form, state[0], interpret=not on_tpu
-                ),
-            )
-        from multigrid_petsc_tpu.ops.pallas.spmv_dia import dia_spmv_pallas
-
-        offs, dvals = self.dia
+    def apply(self, state):
+        """y = A x."""
         return self.unflatten(
-            dia_spmv_pallas(offs, dvals, self.flatten(state),
-                            interpret=not on_tpu)
+            ell_spmv(self.vals, self.cols, self.flatten(state))
         )

@@ -1,6 +1,6 @@
 """Matrix-free stencil operators on dense interior grids.
 
-The TPU-native replacement for the reference's distributed CSR assembly +
+The matrix-free replacement for the reference's distributed CSR assembly +
 SpMV (reference: src/solver.c:185-253 fillJacobians + PETSc MatMult).  The
 5-point operator acts on an (ny, nx) array of interior unknowns with the
 homogeneous-Dirichlet boundary eliminated: out-of-range neighbors contribute
@@ -10,8 +10,8 @@ zero, exactly like the dropped boundary entries in the reference's row fill
 Coefficients are stored as broadcastable arrays: scalars for constant
 stencils, (ny, 1) for y-dependent metrics (the stretched meshes), or
 (ny, nx) for fully variable coefficients.  XLA fuses the shifted adds into a
-single bandwidth-bound pass; the Pallas path (ops/pallas) fuses smoother
-sweeps further.
+single bandwidth-bound pass; ops/smooth5_cuda.py fuses k smoother sweeps
+on a GPU.
 
 Convention (matches src/solver.c:218-252): row index i = y, column j = x;
 ``cs`` multiplies u[i-1, j] (south), ``cw`` u[i, j-1] (west), ``cc`` u[i, j],
@@ -103,7 +103,7 @@ def jacobi_sweeps(
 ) -> jnp.ndarray:
     """``sweeps`` damped-Jacobi iterations u += omega D^-1 (b - A u).
 
-    The TPU-native replacement for the reference's fixed-sweep Richardson
+    The replacement for the reference's fixed-sweep Richardson
     KSP smoother (src/solver.c:1463-1510: KSPRICHARDSON, KSP_NORM_NONE,
     maxits=v).  A fixed trip count maps to lax.fori_loop — no data-dependent
     control flow under jit.
@@ -203,7 +203,7 @@ class PCRFactor(NamedTuple):
     The matrix-only part of the reduction (the per-step elimination
     multipliers and the fully-reduced diagonal) is precomputed once; each
     ``pcr_solve`` then runs only ceil(log2 n) fully-vectorized passes over
-    the RHS — the TPU-native replacement for a sequential Thomas scan,
+    the RHS — the parallel replacement for a sequential Thomas scan,
     whose 2n lax.scan steps are latency-bound on (1, nx) rows.  Step k of
     the stored sequence uses stride 2**k (implied; not stored).
     """
@@ -269,7 +269,7 @@ def line_jacobi_sweeps_y(
     u[i+1,j] with all x-direction and corner terms moved to the RHS from
     the previous iterate.
 
-    The TPU-native line-smoother variant (BASELINE.md config 4): strong
+    The line-smoother variant (BASELINE.md config 4): strong
     y-coupling (stretched/anisotropic operators) makes point smoothers
     stall; line relaxation in the strong direction restores textbook MG
     rates.  The batched tridiagonal solve runs all nx lines at once.
@@ -277,7 +277,7 @@ def line_jacobi_sweeps_y(
     ny, nx = u.shape
     # Factor the (static) line systems once per call with PCR; each sweep
     # then costs only log2(ny) vectorized passes instead of a 2*ny-step
-    # sequential Thomas scan (latency-bound at ~5 ms/cycle on v5e).
+    # sequential Thomas scan (2 ny dependent steps).
     fac = pcr_factor(st.cs, st.cc, st.cn, ny)
 
     def off_line(u):

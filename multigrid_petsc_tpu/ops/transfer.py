@@ -10,7 +10,7 @@ Capability parity with the reference's stencil-wise transfer algebra
   * composed operators between grids with a gap > 1, stencil size
     (s+1)*2-1 = 3, 7, 15, ... (src/matbuild.c:336-340, 355-396).
 
-TPU-native redesign: transfers are matrix-free.  Single-gap restriction is
+Transfers are matrix-free.  Single-gap restriction is
 three strided adds (XLA strided slices); prolongation is an interleave of
 four averaged planes built from reshapes/concats — no scatter.  Multi-gap
 transfers are applied as repeated single-gap transfers, which is
@@ -42,9 +42,8 @@ PROLONG_3x3 = np.array(
 def restrict_fw(r: jnp.ndarray) -> jnp.ndarray:
     """Full-weighting restriction, fine (2n+1, 2m+1) -> coarse (n, m).
 
-    Separable [1,2,1]/4 x [1,2,1]/4 form with SINGLE-axis strided slices
-    only: XLA's TPU lowering of 2-D strided slices (r[a::2, b::2]) is ~70x
-    slower than two 1-D passes (measured on v5e; see git history)."""
+    Separable [1,2,1]/4 x [1,2,1]/4 form: two passes of single-axis
+    strided slices."""
     rows = r[0:-2:2, :] + 2.0 * r[1::2, :] + r[2::2, :]  # (n, 2m+1)
     out = rows[:, 0:-2:2] + 2.0 * rows[:, 1::2] + rows[:, 2::2]
     return 0.0625 * out
@@ -131,6 +130,7 @@ def restrict_with_stencil(r: jnp.ndarray, stencil, stride: int) -> jnp.ndarray:
         w[None, None],
         window_strides=(stride, stride),
         padding="VALID",
+        precision=lax.Precision.HIGHEST,  # no TF32 on the GPU
     )
     return out[0, 0]
 
@@ -146,5 +146,6 @@ def prolong_with_stencil(e: jnp.ndarray, stencil, stride: int) -> jnp.ndarray:
         window_strides=(1, 1),
         padding=[(s - 1, s - 1), (s - 1, s - 1)],
         lhs_dilation=(stride, stride),
+        precision=lax.Precision.HIGHEST,  # no TF32 on the GPU
     )
     return out[0, 0]

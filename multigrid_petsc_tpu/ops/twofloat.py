@@ -1,23 +1,19 @@
 """Two-float32 ("double-single") arithmetic for the high-precision outer.
 
-The TPU-native alternative to emulated float64 for the 1e-8 residual
-certification (BASELINE.md: "wall time to 1e-8").  A value is carried as
-an unevaluated sum hi + lo of two float32 arrays with |lo| <= ulp(hi)/2,
-giving ~2^-47 effective relative precision — enough to certify 1e-8
-relative residuals up to ~8193^2 (attainable residual ~ eps * ||A||
-||u|| / ||b||) — while every operation runs as a handful of native f32
-vector ops at f32 HBM bandwidth.  XLA's own f64-on-TPU emulation uses
-the same double-word decomposition but pays full per-op normalization
-and special-case handling; these kernels keep the classic error-free
-transformations (Knuth two-sum, Dekker two-product) and fuse under jit,
-measured ~40x faster per outer iteration at 8193^2.
+An alternative to native float64 for the 1e-8 residual certification
+(BASELINE.md: "wall time to 1e-8").  A value is carried as an unevaluated
+sum hi + lo of two float32 arrays with |lo| <= ulp(hi)/2, giving ~2^-47
+effective relative precision — enough to certify 1e-8 relative residuals
+up to ~8193^2 (attainable residual ~ eps * ||A|| ||u|| / ||b||) — while
+every operation runs as a handful of native f32 vector ops.  The kernels
+are the classic error-free transformations (Knuth two-sum, Dekker
+two-product), fused under jit.
 
 Role in the framework: `outer_dtype="float32x2"` runs the defect-
 correction outer PCG (solvers/krylov.py) in this arithmetic; the f32
 multigrid V-cycle stays the preconditioner.  Reference analogue: the
 outer true-residual loop of the PCMG path (src/solver.c:1884-1989) —
-the reference runs everything in native double; on TPU that precision
-has to be composed from f32 pairs.
+the reference runs everything in native double.
 
 Correctness requires IEEE-754 f32 ops with round-to-nearest AND that
 every intermediate is rounded to f32.  The second condition is the subtle
@@ -31,11 +27,11 @@ renormalization invariant |lo| <= ulp(hi)/2) breaks the arithmetic at
 eps32 scale.  Every intermediate whose ROUNDED value is load-bearing —
 two_prod's p, the Dekker split's t, and the EFT sums s — is therefore
 pinned with ``lax.reduce_precision(v, 8, 23)``: semantically the f32
-identity, but an explicit HLO rounding op that no backend may contract
-across (``lax.optimization_barrier`` does NOT work for this — XLA's
-barrier expander strips it before fusion, observed on XLA:CPU).  All
-other products only feed low-order error terms where an fma rewrite is
-harmless or beneficial.
+identity, but an explicit HLO rounding op (``lax.optimization_barrier``
+does NOT work for this — XLA's barrier expander strips it before fusion,
+observed on XLA:CPU).  All other products only feed low-order error terms
+where an fma rewrite is harmless or beneficial.  The f64 -> double-single
+split avoids f32 round trips for the same reason (see ``from_f64``).
 """
 
 from __future__ import annotations
@@ -155,12 +151,23 @@ def from_f32(x) -> TF:
     return TF(x, jnp.zeros_like(x))
 
 
+_HI_MASK = 0xFFFFFFFFE0000000  # keeps the sign, exponent, top 23 mantissa bits
+
+
 def from_f64(x) -> TF:
-    """Split an f64 array into its two-float32 parts (setup only; needs
-    jax_enable_x64 when tracing on device)."""
-    hi = x.astype(_F32)
-    lo = (x - hi.astype(x.dtype)).astype(_F32)
-    return TF(hi, lo)
+    """Split an f64 array into its two-float32 parts (needs
+    jax_enable_x64 when tracing on device).
+
+    The high part is x with its mantissa cut to f32's width by masking
+    bits, not by an f32 round trip: XLA may fold convert(convert(x, f32),
+    f64) back into x (the GPU compiler does, as it allows excess precision
+    by default), which would zero every low part.  x - hi is then exact in
+    f64, and a final fast_two_sum restores |lo| <= ulp(hi)/2."""
+    bits = jax.lax.bitcast_convert_type(jnp.asarray(x, jnp.float64),
+                                        jnp.uint64)
+    hi64 = jax.lax.bitcast_convert_type(bits & jnp.uint64(_HI_MASK),
+                                        jnp.float64)
+    return TF(*fast_two_sum(hi64.astype(_F32), (x - hi64).astype(_F32)))
 
 
 def to_f64(x: TF):

@@ -4,13 +4,10 @@ from multigrid_petsc_tpu.parallel.device_mesh import (
     make_row_mesh,
     row_plan,
 )
-from multigrid_petsc_tpu.parallel.dist_ops import DistLevelOps, dist_viable
 
 __all__ = [
     "ShardingPlan",
     "make_device_mesh",
     "make_row_mesh",
     "row_plan",
-    "DistLevelOps",
-    "dist_viable",
 ]

@@ -1,6 +1,6 @@
 """Device meshes and level-dependent sharding plans.
 
-The TPU-native replacement for the reference's domain decomposition layer
+The replacement for the reference's domain decomposition layer
 (reference: src/matbuild.c:120-144 GetRanges 1-D row partition + the three
 composite ordering styles at src/matbuild.c:146-323): the grid is 2-D
 block-partitioned over a jax.sharding.Mesh with axes ('y', 'x'); "ordering
@@ -57,17 +57,18 @@ class ShardingPlan:
     ``min_local`` is the minimum interior points per device per dimension
     below which a grid is agglomerated (replicated on all devices).
 
-    ``layout`` is the TPU counterpart of the reference's ``-map`` ordering
+    ``layout`` is the counterpart of the reference's ``-map`` ordering
     styles (src/matbuild.c:146-323 decided how composite unknowns were laid
     out over the MPI ranks):
       * ``"blocks"`` — 2-D block partition over the (my, mx) mesh, minimal
-        halo perimeter; distribution via GSPMD sharding propagation.
+        halo perimeter.
       * ``"rows"`` — 1-D block-row partition over all devices (the
         reference's actual GetRanges decomposition, src/matbuild.c:120-144)
-        on a (P, 1) mesh.  Row-sharded levels additionally run the FUSED
-        Pallas kernels per device under shard_map with ppermute halo
-        exchange (parallel/dist_ops.py) — the production distributed hot
-        path.  Build with ``row_plan()``.
+        on a (P, 1) mesh.  Build with ``row_plan()``.
+
+    Both distribute through GSPMD sharding propagation: XLA inserts the
+    halo collective-permutes (NCCL on GPUs).  Grid sides are odd (2^k - 1),
+    so shards are uneven and GSPMD pads them internally.
     """
 
     mesh: Mesh
@@ -77,11 +78,7 @@ class ShardingPlan:
     def spec(self, ny: int, nx: int) -> P:
         my, mx = self.mesh.devices.shape
         if self.layout == "rows":
-            # Row partition counts the single pad row sharded levels carry
-            # (ny + 1 rows; see parallel/dist_ops.py).
-            if (ny + 1) % my == 0 and (ny + 1) // my >= self.min_local:
-                return P("y", None)
-            return P(None, None)
+            return P("y", None) if ny // my >= self.min_local else P(None, None)
         shard_y = ny // my >= self.min_local
         shard_x = nx // mx >= self.min_local
         if shard_y and shard_x:
@@ -114,8 +111,8 @@ def make_row_mesh(devices=None) -> Mesh:
 
 
 def row_plan(devices=None, min_local: int = 32) -> ShardingPlan:
-    """Row-partition sharding plan (layout='rows'): the distributed-Pallas
-    production path.  See ShardingPlan.layout."""
+    """Row-partition sharding plan (layout='rows').  See
+    ShardingPlan.layout."""
     return ShardingPlan(make_row_mesh(devices), min_local=min_local,
                         layout="rows")
 

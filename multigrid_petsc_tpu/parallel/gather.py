@@ -4,9 +4,9 @@ solution on every host as a numpy array.
 Capability parity with the reference's GetSol (reference:
 src/solver.c:1239-1315: rank-0 MPI_Send/Recv gather + reorder through the
 global index map — including a latent bug where counts are sent with
-MPI_DOUBLE, deliberately NOT replicated here).  TPU-native: addressable
-shards are read directly; multi-host runs use
-jax.experimental.multihost_utils.process_allgather over DCN.
+MPI_DOUBLE, deliberately NOT replicated here).  Here addressable shards
+are read directly; multi-host runs use
+jax.experimental.multihost_utils.process_allgather.
 """
 
 from __future__ import annotations

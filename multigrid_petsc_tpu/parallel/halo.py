@@ -1,6 +1,6 @@
 """Explicit one-cell halo exchange via ppermute inside shard_map.
 
-The TPU-native equivalent of the neighbor halo exchange PETSc performs
+The explicit equivalent of the neighbor halo exchange PETSc performs
 inside every distributed MatMult (reference: src/solver.c:1516,1535,1540 —
 all SpMVs; SURVEY.md C23).  ``ppermute`` with missing source/destination
 pairs delivers ZEROS to edge shards, which is exactly the eliminated
@@ -9,7 +9,7 @@ homogeneous-Dirichlet boundary — no special-casing needed.
 This module is the manual-control backend; the default distribution path
 relies on GSPMD propagating shardings through the jnp stencil ops (XLA
 inserts equivalent collective-permutes automatically).  Keeping both lets
-tests assert they agree and lets the Pallas/RDMA path slot in later.
+tests assert they agree.
 """
 
 from __future__ import annotations

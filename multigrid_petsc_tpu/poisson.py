@@ -14,18 +14,23 @@ writes the reference's artifact files.
 from __future__ import annotations
 
 import sys
-import tempfile
 from pathlib import Path
 
 from multigrid_petsc_tpu.mesh import MeshType
 from multigrid_petsc_tpu.postprocess import error_norms, write_artifacts
 from multigrid_petsc_tpu.solvers.solve import solve
-from multigrid_petsc_tpu.utils.config import SolverConfig, parse_options_file
+from multigrid_petsc_tpu.utils import runtime
+from multigrid_petsc_tpu.utils.config import (
+    SolverConfig,
+    parse_options,
+    parse_options_file,
+)
 from multigrid_petsc_tpu.utils.logging import print_info
 
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    runtime.configure()
     cfg = SolverConfig()
 
     # Positional options file (or ./poisson.in, like PetscInitialize's
@@ -37,12 +42,10 @@ def main(argv=None) -> int:
 
     # Command-line -key value overrides (the PETSc options-DB behavior).
     if argv:
-        with tempfile.NamedTemporaryFile("w", suffix=".in", delete=False) as f:
-            for i in range(0, len(argv) - 1, 2):
-                f.write(f"{argv[i]} {argv[i + 1]}\n")
-            tmp = f.name
-        cfg = parse_options_file(tmp, cfg)
-        Path(tmp).unlink()
+        cfg = parse_options(
+            [f"{argv[i]} {argv[i + 1]}" for i in range(0, len(argv) - 1, 2)],
+            cfg,
+        )
 
     try:
         cfg = cfg.validate()
@@ -54,9 +57,8 @@ def main(argv=None) -> int:
     # attached (the reference's three ordering styles decided how unknowns
     # were laid out over MPI ranks, src/matbuild.c:146-323): style 2
     # ("local grid after grid", driven by the fine-grid decomposition —
-    # the default) maps to the 1-D row partition with the fused
-    # distributed kernels; styles 0/1 (grid-after-grid / through-grids)
-    # map to the 2-D block GSPMD plan.
+    # the default) maps to the 1-D row partition; styles 0/1
+    # (grid-after-grid / through-grids) map to the 2-D block plan.
     plan = None
     import jax
 

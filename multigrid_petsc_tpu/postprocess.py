@@ -8,7 +8,7 @@ Capability parity with the reference (reference: src/solver.c:1211-1380):
     (src/solver.c:151-166, 1329-1354), plus rGlobal.dat / rGrid<i>.dat for
     the per-grid inner-sweep monitors (src/solver.c:1356-1376).
 
-TPU-native: no rank-0 MPI gather is needed — the solution is (or can be
+Redesign: no rank-0 MPI gather is needed — the solution is (or can be
 gathered to) a single device array; error norms are computed on-device.
 The reference's GetSol send/recv (src/solver.c:1239-1315, including its
 latent MPI_DOUBLE count bug) has no analogue here by design.

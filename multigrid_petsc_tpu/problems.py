@@ -19,10 +19,10 @@ variable-coefficient stencil whose coefficients come from the mesh metrics
 (The neighbor identification follows the assembly loop at
 src/solver.c:218-252; row index i is the y direction, column j is x.)
 
-TPU-native redesign: coefficients are evaluated vectorized on-device as
-broadcastable arrays.  For the tensor-product meshes the metrics depend on y
-only, so coefficient arrays have shape (ny, 1) and broadcast across x — a
-large HBM-bandwidth saving versus materializing (ny, nx) fields.  A fully
+Redesign: coefficients are evaluated vectorized on-device as broadcastable
+arrays.  For the tensor-product meshes the metrics depend on y only, so
+coefficient arrays have shape (ny, 1) and broadcast across x — a large
+memory-bandwidth saving versus materializing (ny, nx) fields.  A fully
 variable-coefficient 9-point path is provided by ops.stencil.Stencil9.
 """
 

@@ -8,9 +8,9 @@ provides real coarse solvers:
 
   * "direct": dense LU of the (possibly composite) coarsest operator,
     built once at setup by probing the matrix-free apply with identity
-    columns; application is a pair of triangular solves (a small dense
-    op — MXU-friendly on TPU).  Exact + linear, so Krylov outers stay
-    happy.  Used when the coarsest level has <= max_direct_size unknowns.
+    columns and inverted on the host; application is one small dense
+    matvec.  Exact + linear, so Krylov outers stay happy.  Used when the
+    coarsest level has <= max_direct_size unknowns.
   * "cg": fixed-iteration conjugate gradients, matrix-free (for coarse
     grids too large to densify).
   * "smooth": the reference-faithful v1 smoother sweeps.
@@ -22,6 +22,8 @@ from typing import Callable
 
 import jax
 import jax.numpy as jnp
+
+from multigrid_petsc_tpu.ops.norms import vdot
 
 
 def _flatten(state):
@@ -37,22 +39,15 @@ def _unflatten(vec, shapes):
     return tuple(out)
 
 
-def dense_from_stencil(st, ny: int, nx: int):
-    """Dense (N, N) matrix of a (possibly 9-point) stencil operator with
-    eliminated Dirichlet boundary, assembled analytically on host —
-    replaces O(N) probing matvecs at setup and doesn't cap how big an
-    agglomerated coarse level can be (reference analogue: the per-row
-    fill of src/solver.c:185-253, restricted to the coarsest level)."""
+def stencil_coo(st, ny: int, nx: int):
+    """(rows, cols, vals) of a (possibly 9-point) stencil operator with
+    eliminated Dirichlet boundary, assembled analytically on host in f64
+    (reference analogue: the per-row fill of src/solver.c:185-253)."""
     import numpy as np
 
-    N = ny * nx
-    a = np.zeros((N, N))
     ii, jj = np.mgrid[0:ny, 0:nx]
     rows = (ii * nx + jj).ravel()
-
-    def bcast(c):
-        return np.broadcast_to(np.asarray(c, np.float64), (ny, nx)).ravel()
-
+    out_r, out_c, out_v = [], [], []
     # (name, dy, dx) neighbor table; Stencil5 lacks the corner fields.
     offsets = [("cc", 0, 0), ("cs", -1, 0), ("cn", 1, 0),
                ("cw", 0, -1), ("ce", 0, 1), ("csw", -1, -1),
@@ -62,8 +57,24 @@ def dense_from_stencil(st, ny: int, nx: int):
             continue
         i2, j2 = ii + dy, jj + dx
         ok = ((i2 >= 0) & (i2 < ny) & (j2 >= 0) & (j2 < nx)).ravel()
-        cols = (i2 * nx + j2).ravel()
-        a[rows[ok], cols[ok]] = bcast(getattr(st, name))[ok]
+        vals = np.broadcast_to(
+            np.asarray(getattr(st, name), np.float64), (ny, nx)).ravel()
+        out_r.append(rows[ok])
+        out_c.append((i2 * nx + j2).ravel()[ok])
+        out_v.append(vals[ok])
+    return (np.concatenate(out_r), np.concatenate(out_c),
+            np.concatenate(out_v))
+
+
+def dense_from_stencil(st, ny: int, nx: int):
+    """Dense (N, N) matrix of ``stencil_coo`` — replaces O(N) probing
+    matvecs at setup and doesn't cap how big an agglomerated coarse level
+    can be."""
+    import numpy as np
+
+    a = np.zeros((ny * nx, ny * nx))
+    r, c, v = stencil_coo(st, ny, nx)
+    a[r, c] = v
     return a
 
 
@@ -90,10 +101,10 @@ def build_direct_solver(
     levels pass ``dense`` assembled from the native CSR engine.  Only
     operators with no explicit form left (e.g. padded/exotic composites)
     probe the matrix-free apply column-by-column.  The inversion happens
-    on host in f64 at setup (LAPACK; TPU XLA has no f64 LU, and a
-    one-time host factorization is the right place for it — the analogue
-    of the reference's assembly step).  The per-cycle application is a
-    single dense (N, N) matvec — MXU work on TPU.
+    on host in f64 at setup (LAPACK, once — the analogue of the
+    reference's assembly step).  The per-cycle application is a single
+    dense (N, N) matvec at HIGHEST precision: an f32 product may otherwise
+    run in TF32 on the GPU, which keeps about three decimal digits.
     """
     import numpy as np
 
@@ -113,7 +124,8 @@ def build_direct_solver(
     a_inv = jnp.asarray(np.linalg.inv(a), dtype=dtype)
 
     def solve(b_state):
-        x = a_inv @ _flatten(b_state)
+        x = jnp.matmul(a_inv, _flatten(b_state),
+                       precision=jax.lax.Precision.HIGHEST)
         return _unflatten(x, shapes)
 
     return solve
@@ -135,16 +147,16 @@ def build_cg_solver(
         x = jnp.zeros_like(b)
         r = b
         p = r
-        rr = jnp.vdot(r, r)
+        rr = vdot(r, r)
 
         def body(_, carry):
             x, r, p, rr = carry
             ap = mv(p)
-            denom = jnp.vdot(p, ap)
+            denom = vdot(p, ap)
             alpha = jnp.where(denom != 0, rr / denom, 0.0)
             x = x + alpha * p
             r = r - alpha * ap
-            rr_new = jnp.vdot(r, r)
+            rr_new = vdot(r, r)
             beta = jnp.where(rr != 0, rr_new / rr, 0.0)
             p = r + beta * p
             return (x, r, p, rr_new)

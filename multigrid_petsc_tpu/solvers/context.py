@@ -1,6 +1,6 @@
 """Solver setup: builds the per-level operator context from a config.
 
-This is the TPU-native analogue of the reference's setup + assembly phase
+This is the matrix-free analogue of the reference's setup + assembly phase
 (reference: src/poisson.c:85-118 SetUpMesh/SetUpIndices/SetUpOperator/
 SetUpSolver/Assemble): instead of assembling distributed CSR matrices it
 evaluates stencil-coefficient arrays per grid and wires matrix-free applies,
@@ -9,8 +9,8 @@ smoothers and transfers for every level.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Callable, Sequence
+from dataclasses import dataclass
+from typing import Callable
 
 import jax
 import jax.numpy as jnp
@@ -52,76 +52,36 @@ class LevelCtx:
     smooth: Callable[[State, State, int], State] = None  # (b, u, sweeps)
     lmax: float | None = None  # Chebyshev bound on spec(D^-1 A), if used
     shardings: tuple | None = None  # per-grid NamedSharding (distributed mode)
-    # Distributed fused-Pallas path (row-partition plans): state arrays on
-    # this level carry ``pad_rows`` extra zero rows (so ny+1 divides the
-    # device count) and every operator delegates to ``dist``
-    # (parallel/dist_ops.DistLevelOps: shard_map + ppermute halos around
-    # the fused kernels).  Single-grid levels only.
-    pad_rows: int = 0
-    dist: object | None = None
     coarse_solve: Callable | None = None  # real coarsest-level solver
-    use_pallas_apply: bool = False  # fused Pallas SpMV on this level
     # Explicit sparse backend (cfg.backend == "sparse"): the level operator
     # as an assembled matrix (ops/sparse.SparseLevelOp) — the reference's
     # always-explicit form (src/solver.c:489-556 levelMatrixA/A1/A2).
     sparse_full: object | None = None
     sparse_diag: object | None = None   # A1: grid-diagonal blocks only
     sparse_coup: object | None = None   # A2: coupling blocks only
-    # Fused V-cycle level visits (see vcycle.v_cycle):
+    # The level's smoother steps run the CUDA kernel
+    # (ops/smooth5_cuda.smooth5) instead of the jnp sweeps.
+    cuda_smoother: bool = False
+    # V-cycle level visits (see vcycle.v_cycle):
     #   visit_down(b, u, sweeps) -> (u', restrict_fw(b - A u'))
     #   visit_up(b, u, e_coarse, sweeps, emit_r) ->
     #       u'' = smooth(b, u + P e_coarse)  [, b - A u'']
-    # On Pallas-eligible levels these are single fused kernels; elsewhere
-    # they compose smooth/residual/transfer ops (identical numerics).
     visit_down: Callable = None
     visit_up: Callable = None
-    # CG fast-path kernels (fused Pallas levels only, else None):
-    #   visit_up_dot(b, u, e_coarse, sweeps) -> (u'', <b, u''>) — the
-    #       preconditioner inner product <r, M r> emitted for free;
-    #   papply(z, p, beta) -> (p', A p', <p', A p'>) with p' = z + beta p
-    #       (z and p are donated — see ops.pallas.cg_papply_pallas);
-    #   cg_visit_down(r, ap, alpha, sweeps) ->
-    #       (u0, rc1, r' = r - alpha ap, ||r'||^2) — the CG residual
-    #       update folded into the zero-guess down visit (r, ap donated).
-    visit_up_dot: Callable | None = None
-    papply: Callable | None = None
-    cg_visit_down: Callable | None = None
-    # Manual-DMA fast path (ops.pallas.mdma_kernel): shape-viable flag +
-    # the smoother's static (alpha, beta) schedule builder; the fused CG
-    # solver routes through the lane-padded mdma kernels when set.
-    mdma_ok: bool = False
-    steps_fn: Callable | None = None
 
     @property
-    def padded_shapes(self) -> list[tuple[int, int]]:
-        """Per-grid state-array shapes (incl. the distributed pad row)."""
-        return [
-            (g.ny + (self.pad_rows if k == 0 else 0), g.nx)
-            for k, g in enumerate(self.spec.grids)
-        ]
+    def shapes(self) -> list[tuple[int, int]]:
+        """Per-grid state-array shapes."""
+        return [g.shape for g in self.spec.grids]
 
     def apply(self, u: State) -> State:
         from multigrid_petsc_tpu.ops.stencil import Stencil9, apply_stencil9
 
-        if self.dist is not None:
-            return (self.dist.apply(u[0]),)
         if self.sparse_full is not None:
             return self.sparse_full.apply(u)
         if isinstance(self.stencils[0], Stencil9):
             # 9-point path (anisotropic family): single grid per level.
-            if self.use_pallas_apply:
-                from multigrid_petsc_tpu.ops.pallas.stencil9_kernel import (
-                    apply_stencil9_pallas,
-                )
-
-                return (apply_stencil9_pallas(self.stencils[0], u[0]),)
             return (apply_stencil9(self.stencils[0], u[0]),)
-        if self.use_pallas_apply:
-            from multigrid_petsc_tpu.ops.pallas.stencil_kernel import (
-                apply_stencil5_pallas,
-            )
-
-            return (apply_stencil5_pallas(self.stencils[0], u[0]),)
         return composite_apply(self.stencils, self.spec.gids, u)
 
     def apply_diag(self, u: State) -> State:
@@ -141,30 +101,11 @@ class LevelCtx:
         )
 
     def residual(self, b: State, u: State) -> State:
-        if self.dist is not None:
-            return (self.dist.residual(b[0], u[0]),)
-        if self.sparse_full is not None:
-            au = self.sparse_full.apply(u)
-            return tuple(bk - ak for bk, ak in zip(b, au))
-        if self.use_pallas_apply:
-            from multigrid_petsc_tpu.ops.stencil import Stencil9
-
-            if isinstance(self.stencils[0], Stencil9):
-                from multigrid_petsc_tpu.ops.pallas.stencil9_kernel import (
-                    residual9_pallas,
-                )
-
-                return (residual9_pallas(self.stencils[0], b[0], u[0]),)
-            from multigrid_petsc_tpu.ops.pallas.stencil_kernel import (
-                residual5_pallas,
-            )
-
-            return (residual5_pallas(self.stencils[0], b[0], u[0]),)
         au = self.apply(u)
         return tuple(bk - ak for bk, ak in zip(b, au))
 
     def zeros(self, dtype) -> State:
-        z = tuple(jnp.zeros(s, dtype) for s in self.padded_shapes)
+        z = tuple(jnp.zeros(s, dtype) for s in self.shapes)
         return self.constrain(z)
 
     def constrain(self, state: State) -> State:
@@ -190,43 +131,23 @@ class MGContext:
     dtype: object = jnp.float64
     # Reduced-precision preconditioner context (cfg.precond_dtype): a full
     # second level hierarchy in e.g. bfloat16 that the Krylov outers run
-    # their V-cycle preconditioner through — half the HBM bytes per
-    # preconditioner application; outer accuracy is unaffected.
+    # their V-cycle preconditioner through — half the device-memory bytes
+    # per preconditioner application; outer accuracy is unaffected.
     precond_ctx: "MGContext | None" = None
-    # Which solver fast path actually ran, set at the routing decision
-    # (solvers/krylov.solve_mgcg and SolveResult.path): one of
-    # "mdma" | "fused" | "generic" | "dist" | "sparse" | "xla".  The
-    # always-on KSPView analogue — the reference tells its user exactly
-    # what ran (src/solver.c:1560-1564); a silent routing change must be
-    # visible in results and CI (bench.py asserts the expected path).
-    solver_path: str | None = None
 
     @property
-    def default_path(self) -> str:
-        """Routing description derived from the level-0 operator wiring
-        (used when no driver recorded a more specific choice)."""
+    def path(self) -> str:
+        """Which operator path the solve runs: "sparse" (assembled
+        matrices), "cuda" (the CUDA smoother on level 0) or "generic" (the
+        plain jnp operators).  The always-on KSPView analogue — the
+        reference tells its user exactly what ran (src/solver.c:1560-1564);
+        bench.py asserts it, so a silent routing change is visible."""
         lvl0 = self.levels[0]
-        if lvl0.dist is not None:
-            return "dist"
         if lvl0.sparse_full is not None:
             return "sparse"
-        if lvl0.use_pallas_apply:
-            return "fused"
-        return "xla"
+        return "cuda" if lvl0.cuda_smoother else "generic"
 
     # -- inter-level transfers (reference: src/solver.c:1035-1154 Res/Pro) --
-    # Pad handling: distributed-Pallas levels carry one extra zero row (see
-    # LevelCtx.pad_rows); transfers strip it before the jnp multi-gap
-    # restriction/prolongation and re-add it on padded targets.  When BOTH
-    # ends are padded adjacent single-grid levels, the fused kernels have
-    # already produced the target layout and the transfer is the identity.
-
-    def _strip_pad(self, l: int, x: jnp.ndarray, coarse: bool = False):
-        lvl = self.levels[l]
-        if not lvl.pad_rows:
-            return x
-        ny = lvl.spec.primary.ny
-        return x[: ((ny - 1) // 2 if coarse else ny)]
 
     def restrict_to_next(self, l: int, r_primary: jnp.ndarray) -> State:
         """Restrict level l's primary-grid residual to ALL grids of level
@@ -236,242 +157,77 @@ class MGContext:
         all-gather) rides this transfer."""
         g0 = self.levels[l].spec.primary.g
         nxtc = self.levels[l + 1]
-        r_primary = self._strip_pad(l, r_primary)
         out = [restrict_multi(r_primary, g.g - g0) for g in nxtc.spec.grids]
-        if nxtc.pad_rows:
-            out[0] = jnp.pad(out[0], ((0, nxtc.pad_rows), (0, 0)))
         return nxtc.constrain(tuple(out))
 
     def prolong_from_next(self, l: int, u_next: State) -> jnp.ndarray:
         """Prolong ALL grids of level l+1 onto level l's primary grid and
         sum (reference: Pro builds one matrix doing exactly this sum)."""
-        g0 = self.levels[l].spec.primary.g
-        nxtc = self.levels[l + 1]
-        out = None
-        for g, ug in zip(nxtc.spec.grids, u_next):
-            if nxtc.pad_rows:
-                ug = ug[: g.ny]
-            e = prolong_multi(ug, g.g - g0)
-            out = e if out is None else out + e
-        if self.levels[l].pad_rows:
-            out = jnp.pad(out, ((0, self.levels[l].pad_rows), (0, 0)))
+        out = self.prolong_half(l, u_next, gap_offset=0)
         if self.levels[l].shardings is not None:
             out = jax.lax.with_sharding_constraint(
                 out, self.levels[l].shardings[0]
             )
         return out
 
-    def _adjacent_padded(self, l: int) -> bool:
-        """True when levels l and l+1 are both padded distributed levels
-        one coarsening apart — the fused kernels then speak each other's
-        layout directly."""
-        cur, nxt = self.levels[l], self.levels[l + 1]
-        return bool(
-            cur.pad_rows and nxt.pad_rows and not nxt.spec.is_composite
-            and nxt.spec.primary.g - cur.spec.primary.g == 1
-        )
-
-    # -- split transfers for the fused level visits (vcycle.v_cycle) --
-    # The first restriction/last prolongation gap rides inside the fused
-    # Pallas level-visit kernels; these helpers do the REMAINING gaps.
+    # -- split transfers for the level visits (vcycle.v_cycle) --
+    # The down visit emits the residual already restricted by one gap and
+    # the up visit applies the last prolongation gap itself; these helpers
+    # do the REMAINING gaps.
     def restrict_rc1(self, l: int, rc1: jnp.ndarray) -> State:
         """Finish restriction given rc1 = restrict_fw(r) already at one
         gap below level l's primary grid."""
         g0 = self.levels[l].spec.primary.g
         nxtc = self.levels[l + 1]
-        if self._adjacent_padded(l):
-            return nxtc.constrain((rc1,))
-        rc1 = self._strip_pad(l, rc1, coarse=True)
         out = [restrict_multi(rc1, g.g - g0 - 1) for g in nxtc.spec.grids]
-        if nxtc.pad_rows:
-            out[0] = jnp.pad(out[0], ((0, nxtc.pad_rows), (0, 0)))
         return nxtc.constrain(tuple(out))
 
-    def prolong_half(self, l: int, u_next: State) -> jnp.ndarray:
+    def prolong_half(self, l: int, u_next: State,
+                     gap_offset: int = 1) -> jnp.ndarray:
         """Prolong level l+1's grids to ONE gap below level l's primary
         grid and sum (the final gap is applied by visit_up; identical to
-        prolong_from_next by linearity of the bilinear stencil)."""
+        prolong_from_next by linearity of the bilinear stencil).
+        ``gap_offset=0`` prolongs all the way to level l."""
         g0 = self.levels[l].spec.primary.g
         nxtc = self.levels[l + 1]
-        if self._adjacent_padded(l):
-            return u_next[0]
         out = None
         for g, ug in zip(nxtc.spec.grids, u_next):
-            if nxtc.pad_rows:
-                ug = ug[: g.ny]
-            e = prolong_multi(ug, g.g - g0 - 1)
+            e = prolong_multi(ug, g.g - g0 - gap_offset)
             out = e if out is None else out + e
-        if self.levels[l].pad_rows:
-            # The fused visit_up consumes the coarse correction in the
-            # padded coarse layout ((ny-1)/2 + 1 rows).
-            out = jnp.pad(out, ((0, self.levels[l].pad_rows), (0, 0)))
         return out
 
 
-def _use_pallas(ctx: LevelCtx, cfg: SolverConfig) -> bool:
-    """Pallas kernels: TPU, simple (non-composite) level, single device,
-    grid big enough to matter.  backend='sparse' never takes the
-    matrix-free kernels — the explicit operator has its own Pallas path
-    inside SparseLevelOp.apply."""
-    if cfg.backend in ("xla", "sparse"):
-        return False
-    if ctx.shardings is not None and ctx.shardings[0].mesh.devices.size > 1:
-        # Genuinely distributed levels run the shard_map fused kernels
-        # (LevelCtx.dist) or the GSPMD jnp path; a 1-device mesh is
-        # trivially "sharded" and keeps the plain fused kernels.
-        return False
-    if ctx.spec.is_composite:
-        return False
-    g = ctx.spec.primary
-    if g.ny < 256 or g.nx < 256:
-        return False
-    if cfg.backend == "pallas":
-        if jnp.dtype(ctx.dinv[0].dtype).itemsize >= 8:
-            # Compiled Mosaic kernels silently demote f64 math; forcing
-            # the pallas backend on a 64-bit level would quietly lose the
-            # precision the dtype asked for.
-            raise ValueError(
-                "backend='pallas' with a 64-bit level dtype would silently "
-                "demote f64 math in compiled Mosaic kernels; use "
-                "dtype='float32' (+ outer_dtype='float64' for mixed "
-                "precision) or backend='auto'/'xla'"
-            )
-        return True
-    try:
-        # Compiled Mosaic kernels silently demote f64 math — 64-bit runs
-        # keep the exact XLA path (use dtype=float32 [+ outer_dtype=
-        # float64 mixed precision] for the fast path on TPU).
-        return (jax.devices()[0].platform == "tpu"
-                and jnp.dtype(ctx.dinv[0].dtype).itemsize < 8)
-    except Exception:  # pragma: no cover
-        return False
+def _platform() -> str:
+    return jax.devices()[0].platform
 
 
-def _use_dist(lc: LevelCtx, cfg: SolverConfig, plan, dtype) -> bool:
-    """Row-partition plans route eligible levels through the distributed
-    fused-Pallas path (shard_map + ppermute halos, parallel/dist_ops.py).
-    Eligible: single-grid 5-point level, jacobi/chebyshev smoother, rows
-    actually sharded (not agglomerated), block sizes that carry the halo.
-    Non-TPU platforms run the kernels in interpreter mode (the virtual-mesh
-    test tier); 64-bit data on TPU keeps the exact GSPMD path (compiled
-    Mosaic would silently demote f64, same policy as _use_pallas)."""
-    from multigrid_petsc_tpu.parallel.dist_ops import dist_viable
+def _step_coeffs(kind: SmootherType, sweeps: int, omega: float,
+                 lmax: float | None) -> tuple:
+    """(alpha, beta) schedule of a Jacobi/Chebyshev level smoother."""
+    if kind == SmootherType.JACOBI:
+        return sm.jacobi_step_coeffs(sweeps, omega)
+    return sm.chebyshev_step_coeffs(sweeps, lmax)
 
-    if plan is None or getattr(plan, "layout", "blocks") != "rows":
-        return False
-    if int(plan.mesh.devices.size) == 1:
-        # A 1-device "distribution" would only add shard_map/halo-window
-        # overhead (~1.5x per op, measured); the plain fused kernels are
-        # the right path there (_use_pallas allows 1-device meshes).
-        return False
-    if cfg.backend in ("xla", "sparse"):
-        return False
-    if lc.spec.is_composite:
-        return False
-    if not isinstance(lc.stencils[0], Stencil5):
-        # 9-pt family (r5): the dist kernels carry the coefficients as an
-        # additive col+row decomposition — needs additive separability
-        # (true for every repo problem family; see dist_kernel.
-        # _split_additive).
-        from multigrid_petsc_tpu.ops.pallas.dist_kernel import separable9
-        from multigrid_petsc_tpu.ops.stencil import Stencil9
 
-        g9 = lc.spec.primary
-        if not (isinstance(lc.stencils[0], Stencil9)
-                and separable9(lc.stencils[0], g9.ny, g9.nx)):
-            return False
+def _use_cuda_smoother(lc: LevelCtx, cfg: SolverConfig) -> bool:
+    """backend='auto' runs a level's Jacobi/Chebyshev sweeps through the
+    CUDA kernel where ops/smooth5_cuda.kernel_eligible says so (a GPU, one
+    device, f32, 5-point, large level); backend='xla' never does."""
+    from multigrid_petsc_tpu.ops import smooth5_cuda
+
+    if cfg.backend != "auto" or lc.spec.is_composite:
+        return False
     if cfg.smoother not in (SmootherType.JACOBI, SmootherType.CHEBYSHEV):
         return False
-    try:
-        platform = jax.devices()[0].platform
-    except Exception:  # pragma: no cover
-        return False
-    g = lc.spec.primary
-    if platform == "tpu" and (g.ny < 256 or g.nx < 256):
-        # Small levels: fixed Pallas dispatch overhead dominates any
-        # fusion gain (same cutoff as the single-device path); GSPMD jnp
-        # ops handle them.  Interpreter mode (CPU test tier) keeps every
-        # eligible level on the dist path for coverage.
-        return False
-    if plan.spec(g.ny, g.nx)[0] != "y":
-        return False  # agglomerated (replicated) level
-    if not dist_viable(g.ny, int(plan.mesh.devices.size), cfg.max_sweeps,
-                       nx=g.nx):
-        return False
-    if platform != "tpu":
-        # Interpreter-mode kernels are for the virtual-mesh test tier:
-        # require the explicit backend='pallas' opt-in (backend='auto' on
-        # CPU keeps the compiled GSPMD path).
-        return cfg.backend == "pallas"
-    if jnp.dtype(dtype).itemsize >= 8:
-        if cfg.backend == "pallas":
-            raise ValueError(
-                "backend='pallas' with 64-bit dtype on TPU would silently "
-                "demote f64 math in compiled Mosaic kernels; use "
-                "dtype='float32' (+ outer_dtype='float64') or backend='auto'"
-            )
-        return False
-    return True
+    n_dev = (1 if lc.shardings is None
+             else int(lc.shardings[0].mesh.devices.size))
+    return smooth5_cuda.kernel_eligible(
+        lc.stencils[0], lc.spec.primary.shape, lc.dinv[0].dtype,
+        cfg.max_sweeps, _platform(), n_dev)
 
 
 def _build_smoother(ctx: LevelCtx, cfg: SolverConfig):
-    from multigrid_petsc_tpu.ops.pallas.stencil_kernel import (
-        fused_visit_viable,
-    )
-
     kind = cfg.smoother
-    if ctx.dist is not None:
-        # Distributed fused path: the smoother IS the fused kernel; wire
-        # its (alpha, beta) step schedule from the configured smoother.
-        from multigrid_petsc_tpu.ops.pallas.stencil_kernel import (
-            chebyshev_step_coeffs,
-            jacobi_step_coeffs,
-        )
-
-        if kind == SmootherType.JACOBI:
-            ctx.dist.steps_fn = lambda s: jacobi_step_coeffs(s, cfg.omega)
-        elif kind == SmootherType.CHEBYSHEV:
-            # Estimate on the REAL-shape stencil operator so lmax (and the
-            # Chebyshev step schedule) is bit-identical to the
-            # single-device path — pad rows would otherwise perturb the
-            # power iteration and the residual histories with it.
-            from multigrid_petsc_tpu.ops.stencil import (
-                Stencil9,
-                apply_stencil5,
-                apply_stencil9,
-            )
-
-            st0 = ctx.stencils[0]
-            ap9 = isinstance(st0, Stencil9)
-            lmax = float(
-                sm.estimate_dinv_a_lmax(
-                    lambda u: ((apply_stencil9 if ap9 else apply_stencil5)(
-                        st0, u[0]),),
-                    (1.0 / st0.cc,),
-                    [ctx.spec.primary.shape],
-                    dtype=jnp.asarray(st0.cc).dtype,
-                )
-            )
-            ctx.lmax = lmax
-            ctx.dist.steps_fn = lambda s: chebyshev_step_coeffs(s, lmax)
-        else:  # pragma: no cover - guarded in build_context
-            raise ValueError(
-                f"distributed Pallas path supports jacobi/chebyshev, "
-                f"not {kind}"
-            )
-
-        def smooth(b, u, sweeps, _ctx=ctx):
-            return (_ctx.dist.smooth(b[0], u[0], sweeps),)
-
-        return smooth
-    # Fused k-sweep smoother kernels need a k-row halo carry; pre-check so
-    # huge sweep counts fall back to the jnp smoothers instead of raising
-    # at trace time (the smoothers' documented ValueError condition).
-    def _pallas_smoother_ok():
-        return _use_pallas(ctx, cfg) and fused_visit_viable(
-            ctx.spec.primary.ny, cfg.max_sweeps, "u"
-        )
-
     if ctx.spec.is_composite and cfg.composite_smoother == "block_gs":
         # Composite levels default to grid-ordered block Gauss-Seidel: the
         # coupling blocks break diagonal dominance, so point smoothers on
@@ -482,84 +238,28 @@ def _build_smoother(ctx: LevelCtx, cfg: SolverConfig):
                 _ctx.stencils, _ctx.spec.gids, _ctx.dinv, b, u, sweeps,
                 inner=cfg.v[0], omega=cfg.omega,
             )
-    elif kind == SmootherType.JACOBI:
-        if _pallas_smoother_ok():
-            from multigrid_petsc_tpu.ops.stencil import Stencil9
-
-            if isinstance(ctx.stencils[0], Stencil9):
-                from multigrid_petsc_tpu.ops.pallas.stencil9_kernel import (
-                    smooth9_sweeps_pallas,
+    elif kind in (SmootherType.JACOBI, SmootherType.CHEBYSHEV):
+        if kind == SmootherType.CHEBYSHEV:
+            ctx.lmax = float(
+                sm.estimate_dinv_a_lmax(
+                    ctx.apply, ctx.dinv, ctx.shapes, dtype=ctx.dinv[0].dtype
                 )
-                from multigrid_petsc_tpu.ops.pallas.stencil_kernel import (
-                    jacobi_step_coeffs,
-                )
-
-                def smooth(b, u, sweeps, _ctx=ctx):
-                    return (
-                        smooth9_sweeps_pallas(
-                            _ctx.stencils[0], b[0], u[0],
-                            jacobi_step_coeffs(sweeps, cfg.omega),
-                        ),
-                    )
-
-                return smooth
-            from multigrid_petsc_tpu.ops.pallas.stencil_kernel import (
-                jacobi_sweeps_pallas,
             )
+        if ctx.cuda_smoother:
+            from multigrid_petsc_tpu.ops.smooth5_cuda import smooth5
 
             def smooth(b, u, sweeps, _ctx=ctx):
-                return (
-                    jacobi_sweeps_pallas(
-                        _ctx.stencils[0], b[0], u[0], sweeps, cfg.omega
-                    ),
-                )
-        else:
+                steps = _step_coeffs(kind, sweeps, cfg.omega, _ctx.lmax)
+                return (smooth5(_ctx.stencils[0], b[0], u[0], steps),)
+        elif kind == SmootherType.JACOBI:
             def smooth(b, u, sweeps, _ctx=ctx):
                 return sm.jacobi(
                     _ctx.apply, _ctx.dinv, b, u, sweeps, cfg.omega
                 )
-    elif kind == SmootherType.CHEBYSHEV:
-        shapes = [g.shape for g in ctx.spec.grids]
-        lmax = float(
-            sm.estimate_dinv_a_lmax(
-                ctx.apply, ctx.dinv, shapes, dtype=ctx.dinv[0].dtype
-            )
-        )
-        ctx.lmax = lmax
-
-        if _pallas_smoother_ok():
-            from multigrid_petsc_tpu.ops.stencil import Stencil9
-
-            if isinstance(ctx.stencils[0], Stencil9):
-                from multigrid_petsc_tpu.ops.pallas.stencil9_kernel import (
-                    smooth9_sweeps_pallas,
-                )
-                from multigrid_petsc_tpu.ops.pallas.stencil_kernel import (
-                    chebyshev_step_coeffs,
-                )
-
-                def smooth(b, u, sweeps, _ctx=ctx, _lmax=lmax):
-                    return (
-                        smooth9_sweeps_pallas(
-                            _ctx.stencils[0], b[0], u[0],
-                            chebyshev_step_coeffs(sweeps, _lmax),
-                        ),
-                    )
-
-                return smooth
-            from multigrid_petsc_tpu.ops.pallas.stencil_kernel import (
-                chebyshev_sweeps_pallas,
-            )
-
-            def smooth(b, u, sweeps, _ctx=ctx, _lmax=lmax):
-                return (
-                    chebyshev_sweeps_pallas(
-                        _ctx.stencils[0], b[0], u[0], sweeps, _lmax
-                    ),
-                )
         else:
-            def smooth(b, u, sweeps, _ctx=ctx, _lmax=lmax):
-                return sm.chebyshev(_ctx.apply, _ctx.dinv, b, u, sweeps, _lmax)
+            def smooth(b, u, sweeps, _ctx=ctx):
+                return sm.chebyshev(_ctx.apply, _ctx.dinv, b, u, sweeps,
+                                    _ctx.lmax)
     elif kind == SmootherType.RBGS:
         from multigrid_petsc_tpu.ops.stencil import (
             Stencil9,
@@ -594,33 +294,6 @@ def _build_smoother(ctx: LevelCtx, cfg: SolverConfig):
                           ce=st.ce, cnw=z, cn=st.cn, cne=z)
         assert not ctx.spec.is_composite, "line smoother: 1 grid per level"
 
-        if kind == SmootherType.LINE_Y and _use_pallas(ctx, cfg):
-            # Whole-array-in-VMEM fused line smoother (ops/pallas/
-            # line_kernel.py): k sweeps in ONE read of (b, u) instead of
-            # ~13 XLA passes per sweep (VERDICT r4 #5).
-            from multigrid_petsc_tpu.ops.pallas.line_kernel import (
-                collapse_stencil,
-                line_visit_viable,
-                line_visit9_pallas,
-            )
-
-            stc = collapse_stencil(st)
-            g0 = ctx.spec.primary
-            if line_visit_viable(g0.ny, g0.nx, ctx.dinv[0].dtype, stc):
-                try:
-                    interp = jax.devices()[0].platform != "tpu"
-                except Exception:  # pragma: no cover
-                    interp = True
-
-                def smooth(b, u, sweeps, _st=stc, _i=interp):
-                    return (
-                        line_visit9_pallas(_st, b[0], u[0], sweeps,
-                                           cfg.omega, emit="u",
-                                           interpret=_i),
-                    )
-
-                return smooth
-
         def smooth(b, u, sweeps, _st=st, _kind=kind):
             ub = u[0]
             if _kind == SmootherType.LINE_Y:
@@ -638,214 +311,27 @@ def _build_smoother(ctx: LevelCtx, cfg: SolverConfig):
 
 
 def _build_visits(lc: LevelCtx, cfg: SolverConfig):
-    """Fused V-cycle level-visit closures (see LevelCtx docstring).
+    """V-cycle level-visit closures (see LevelCtx docstring).
 
-    The fused Pallas path folds the residual, the first restriction gap,
-    and the last prolongation gap into the smoother's single read of
-    (u, b) — the unfused composition costs ~2x the HBM traffic per level
-    visit (residual = separate apply + subtract, correction = extra
-    write+read of u).
-    """
-    from multigrid_petsc_tpu.ops.pallas.stencil_kernel import (
-        fused_visit_viable,
-    )
-
-    if lc.dist is not None:
-        def visit_down(b, u, sweeps, _lc=lc):
-            u0, rc1 = _lc.dist.visit_down(
-                b[0], None if u is None else u[0], sweeps
-            )
-            return (u0,), rc1
-
-        def visit_up(b, u, e_c, sweeps, emit_r=False, _lc=lc):
-            out = _lc.dist.visit_up(b[0], u[0], e_c, sweeps, emit_r)
-            if emit_r:
-                return (out[0],), (out[1],)
-            return (out,)
-
-        return visit_down, visit_up
-
-    from multigrid_petsc_tpu.ops.stencil import Stencil9
-
-    steps_fn = None
-    # Fused visits (smooth+residual+transfer in one kernel) for BOTH
-    # stencil families (5-point via stencil_kernel, 9-point/aniso via
-    # stencil9_kernel — reference treats every operator identically
-    # through assembled MatMult, src/solver.c:489-556).  The viability
-    # pre-check covers the halo-carry ValueError the kernels would raise at
-    # trace time for very large sweep counts (ny < 16 + 2h).
-    is9 = isinstance(lc.stencils[0], Stencil9)
-    if (lc.use_pallas_apply and not lc.spec.is_composite
-            and fused_visit_viable(lc.spec.primary.ny, cfg.max_sweeps, "rc")):
-        from multigrid_petsc_tpu.ops.pallas.stencil_kernel import (
-            chebyshev_step_coeffs,
-            jacobi_step_coeffs,
-        )
-
-        if cfg.smoother == SmootherType.JACOBI:
-            steps_fn = lambda s: jacobi_step_coeffs(s, cfg.omega)
-        elif cfg.smoother == SmootherType.CHEBYSHEV:
-            lmax = lc.lmax
-            steps_fn = lambda s: chebyshev_step_coeffs(s, lmax)
-
-    if steps_fn is not None and is9:
-        from multigrid_petsc_tpu.ops.pallas.stencil9_kernel import (
-            fused_level_visit9_pallas,
-        )
-
-        st9 = lc.stencils[0]
-
-        def visit_down9(b, u, sweeps, _st=st9, _steps=steps_fn):
-            u0, rc1 = fused_level_visit9_pallas(
-                _st, b[0], None if u is None else u[0], _steps(sweeps),
-                emit="rc",
-            )
-            return (u0,), rc1
-
-        # Up-visit correction in-kernel (see the 5-pt visit_up note: the
-        # separate XLA interleave pass measured ~8 ms/visit at 8191^2).
-        def visit_up9(b, u, e_c, sweeps, emit_r=False, _st=st9,
-                      _steps=steps_fn):
-            out = fused_level_visit9_pallas(
-                _st, b[0], u[0], _steps(sweeps),
-                emit="ur" if emit_r else "u", e_coarse=e_c,
-            )
-            if emit_r:
-                return (out[0],), (out[1],)
-            return (out,)
-
-        def visit_up_dot9(b, u, e_c, sweeps, _st=st9, _steps=steps_fn):
-            z, dot = fused_level_visit9_pallas(
-                _st, b[0], u[0], _steps(sweeps), emit="u", emit_dot=True,
-                e_coarse=e_c,
-            )
-            return (z,), dot
-
-        lc.visit_up_dot = visit_up_dot9
-        # papply/cg_visit_down stay None: the CG direction/update kernels
-        # are 5-point-only; the aniso family runs the generic PCG outer
-        # over these fused visits.
-        return visit_down9, visit_up9
-
-    if steps_fn is not None:
-        from multigrid_petsc_tpu.ops.pallas.stencil_kernel import (
-            fused_level_visit_pallas,
-        )
-
-        st = lc.stencils[0]
-
-        def visit_down(b, u, sweeps, _st=st, _steps=steps_fn):
-            # u=None -> zero-guess kernel (no u input/halos materialized).
-            u0, rc1 = fused_level_visit_pallas(
-                _st, b[0], None if u is None else u[0], _steps(sweeps),
-                emit="rc",
-            )
-            return (u0,), rc1
-
-        # Up-visit correction IN-KERNEL (e_coarse=...): round 4 attribution
-        # (benchmarks/results/probe_cg_parts_r04.txt) measured the separate
-        # XLA pass u0 = u + prolong_bilinear(e) at ~8 ms/visit at 8191^2 —
-        # the lane interleave dominates the whole up-visit (10.8 ms vs
-        # 2.6 ms for the kernel+dot alone).  The in-kernel path moves only
-        # the x-half (quarter-size prolong_x_bilinear) through XLA and
-        # y-interleaves in VMEM (sublane ops — cheap in Mosaic).
-        def visit_up(b, u, e_c, sweeps, emit_r=False, _st=st, _steps=steps_fn):
-            out = fused_level_visit_pallas(
-                _st, b[0], u[0], _steps(sweeps),
-                emit="ur" if emit_r else "u", e_coarse=e_c,
-            )
-            if emit_r:
-                return (out[0],), (out[1],)
-            return (out,)
-
-        # CG fast-path closures (solvers/krylov.solve_mgcg): the final
-        # up-visit also emits <b, u''> (= <r, M r>), and the CG direction
-        # step runs as one fused kernel.
-        from multigrid_petsc_tpu.ops.pallas.stencil_kernel import (
-            cg_papply_pallas,
-            cg_visit_down_pallas,
-        )
-
-        def visit_up_dot(b, u, e_c, sweeps, _st=st, _steps=steps_fn):
-            z, dot = fused_level_visit_pallas(
-                _st, b[0], u[0], _steps(sweeps), emit="u", emit_dot=True,
-                e_coarse=e_c,
-            )
-            return (z,), dot
-
-        def papply(z, p, beta, _st=st):
-            return cg_papply_pallas(_st, z, p, beta)
-
-        def cg_visit_down(r, ap, alpha, sweeps, _st=st, _steps=steps_fn):
-            return cg_visit_down_pallas(_st, r, ap, alpha, _steps(sweeps))
-
-        lc.visit_up_dot = visit_up_dot
-        lc.papply = papply
-        lc.cg_visit_down = cg_visit_down
-        lc.steps_fn = steps_fn
-        from multigrid_petsc_tpu.ops.pallas.mdma_kernel import mdma_viable
-
-        g0 = lc.spec.primary
-        lc.mdma_ok = mdma_viable(g0.ny, g0.nx, cfg.max_sweeps,
-                                 lc.dinv[0].dtype)
-
-        return visit_down, visit_up
-
-    if (lc.use_pallas_apply and not lc.spec.is_composite
-            and cfg.smoother == SmootherType.LINE_Y):
-        # Fused whole-array line-smoother visits (VERDICT r4 #5: cfg4's
-        # problems previously got the slowest composition — ~13 XLA
-        # passes per sweep; the reference treats every operator
-        # identically through assembled MatMult, src/solver.c:489-556).
-        from multigrid_petsc_tpu.ops.stencil import Stencil9
-        from multigrid_petsc_tpu.ops.pallas.line_kernel import (
-            collapse_stencil,
-            line_visit_viable,
-            line_visit9_pallas,
-        )
-
-        st0 = lc.stencils[0]
-        if not isinstance(st0, Stencil9):
-            z = jnp.zeros((1, 1), lc.dinv[0].dtype)
-            st0 = Stencil9(csw=z, cs=st0.cs, cse=z, cw=st0.cw, cc=st0.cc,
-                           ce=st0.ce, cnw=z, cn=st0.cn, cne=z)
-        st0 = collapse_stencil(st0)
-        g0 = lc.spec.primary
-        if line_visit_viable(g0.ny, g0.nx, lc.dinv[0].dtype, st0):
-            try:
-                interp = jax.devices()[0].platform != "tpu"
-            except Exception:  # pragma: no cover
-                interp = True
-            omega = cfg.omega
-
-            def visit_down_l(b, u, sweeps, _st=st0, _i=interp):
-                u0, rc1 = line_visit9_pallas(
-                    _st, b[0], None if u is None else u[0], sweeps, omega,
-                    emit="rc", interpret=_i)
-                return (u0,), rc1
-
-            def visit_up_l(b, u, e_c, sweeps, emit_r=False, _st=st0,
-                           _i=interp):
-                out = line_visit9_pallas(
-                    _st, b[0], u[0], sweeps, omega,
-                    emit="ur" if emit_r else "u", e_coarse=e_c,
-                    interpret=_i)
-                if emit_r:
-                    return (out[0],), (out[1],)
-                return (out,)
-
-            def visit_up_dot_l(b, u, e_c, sweeps, _st=st0, _i=interp):
-                z, dot = line_visit9_pallas(
-                    _st, b[0], u[0], sweeps, omega, emit="u",
-                    e_coarse=e_c, emit_dot=True, interpret=_i)
-                return (z,), dot
-
-            lc.visit_up_dot = visit_up_dot_l
-            return visit_down_l, visit_up_l
-
+    On a CUDA-smoother level the down visit's sweeps and residual are one
+    kernel (zero initial guess: u is never read), and the up visit's
+    sweeps plus its optional residual are another; elsewhere the visits
+    compose the level's smoother and residual (same numerics up to
+    summation order)."""
     from multigrid_petsc_tpu.ops.transfer import prolong_bilinear, restrict_fw
 
+    kernel = None
+    if lc.cuda_smoother:
+        from multigrid_petsc_tpu.ops.smooth5_cuda import smooth5
+
+        def kernel(b, u, sweeps, emit_r, _lc=lc):
+            steps = _step_coeffs(cfg.smoother, sweeps, cfg.omega, _lc.lmax)
+            return smooth5(_lc.stencils[0], b[0], u, steps, emit_r=emit_r)
+
     def visit_down(b, u, sweeps, _lc=lc):
+        if kernel is not None:
+            u0, r0 = kernel(b, None if u is None else u[0], sweeps, True)
+            return (u0,), restrict_fw(r0)
         if u is None:
             u = _lc.zeros(b[0].dtype)
         u = _lc.smooth(b, u, sweeps)
@@ -856,6 +342,9 @@ def _build_visits(lc: LevelCtx, cfg: SolverConfig):
         u0 = u[0] + prolong_bilinear(e_c)
         if _lc.shardings is not None:
             u0 = jax.lax.with_sharding_constraint(u0, _lc.shardings[0])
+        if kernel is not None:
+            out = kernel(b, u0, sweeps, emit_r)
+            return ((out[0],), (out[1],)) if emit_r else (out,)
         u = _lc.smooth(b, (u0,) + u[1:], sweeps)
         if emit_r:
             return u, _lc.residual(b, u)
@@ -876,9 +365,11 @@ def build_context(
         # float32x2 needs x64 only at setup (f64 RHS/coefficients are
         # split exactly into two-float32 parts); the solve loop is pure f32.
     ) and not jax.config.jax_enable_x64:
-        # Without this, jnp silently truncates to f32 and a 1e-7 relative
+        # Without x64, jnp silently truncates to f32 and a 1e-7 relative
         # residual target can spin to max_iter at the f32 roundoff floor.
-        jax.config.update("jax_enable_x64", True)
+        raise ValueError(
+            "64-bit dtype/outer_dtype needs JAX's x64 mode: call "
+            "jax.config.update('jax_enable_x64', True) at start-up")
     dtype = jnp.dtype(cfg.dtype)
     specs = build_hierarchy(cfg.npts, cfg.grids, cfg.levels)
     mesh_type = MeshType(cfg.mesh)
@@ -894,7 +385,7 @@ def build_context(
         if plan is not None:
             raise ValueError(
                 "backend='sparse' is the single-device explicit-operator "
-                "path; use backend='auto'/'pallas' for distributed runs"
+                "path; use backend='auto'/'xla' for distributed runs"
             )
 
     aniso = cfg.problem == "aniso"
@@ -909,15 +400,8 @@ def build_context(
                              "unsupported; use grids == levels")
         aniso_prob = AnisoProblem(*cfg.aniso)
 
-    import dataclasses as _dc0
-
     levels: list[LevelCtx] = []
-    for l_idx, spec in enumerate(specs):
-        # Dist-path eligibility resolves against the level's own effective
-        # smoother (per-level smoother configuration).
-        eff_sm = cfg.smoother_at(l_idx, len(specs))
-        cfg_l = (cfg if eff_sm == cfg.smoother
-                 else _dc0.replace(cfg, smoother=eff_sm))
+    for spec in specs:
         if aniso:
             stencils = tuple(
                 stencil9_coefficients(aniso_prob, g.ny, g.nx, dtype)
@@ -942,23 +426,6 @@ def build_context(
         dinv = tuple(1.0 / st.cc for st in stencils)
         lc = LevelCtx(spec=spec, stencils=stencils, dinv=dinv,
                       shardings=shardings)
-        if _use_dist(lc, cfg_l, plan, dtype):
-            from multigrid_petsc_tpu.parallel.dist_ops import DistLevelOps
-
-            g0 = spec.primary
-            lc.pad_rows = 1  # ny + 1 rows divide the device count exactly
-            lc.dist = DistLevelOps(
-                stencils[0], g0.ny, g0.nx, plan.mesh, dtype,
-                interpret=jax.devices()[0].platform != "tpu",
-            )
-            d0 = dinv[0]
-            if getattr(d0, "ndim", 0) == 2 and d0.shape[0] == g0.ny:
-                # Pad the Jacobi diagonal with the absorbing identity so it
-                # broadcasts against the (ny+1, nx) padded state.
-                lc.dinv = (
-                    jnp.concatenate(
-                        [d0, jnp.ones((1, d0.shape[1]), d0.dtype)]),
-                )
         if use_sparse:
             from multigrid_petsc_tpu.ops.sparse import SparseLevelOp
 
@@ -980,7 +447,7 @@ def build_context(
 
     # Per-level effective smoother (reference's fine_/levels_/coarse_
     # prefix capability, src/solver.c:1624-1648): each level's smoother,
-    # visits and dist-path eligibility resolve against its own tier.
+    # visits and kernel choice resolve against its own tier.
     import dataclasses as _dc
 
     def _level_cfg(l: int) -> SolverConfig:
@@ -989,7 +456,7 @@ def build_context(
 
     for l, lc in enumerate(levels):
         lcfg = _level_cfg(l)
-        lc.use_pallas_apply = _use_pallas(lc, lcfg)
+        lc.cuda_smoother = _use_cuda_smoother(lc, lcfg)
         lc.smooth = _build_smoother(lc, lcfg)
         lc.visit_down, lc.visit_up = _build_visits(lc, lcfg)
 
@@ -1000,18 +467,13 @@ def build_context(
         from multigrid_petsc_tpu.solvers import coarse as coarse_mod
 
         last = levels[-1]
-        shapes = last.padded_shapes
+        shapes = last.shapes
         n_unknowns = sum(ny * nx for ny, nx in shapes)
         mode = cfg.coarse_solver
         if mode == "auto":
             mode = "direct" if n_unknowns <= cfg.max_direct_size else "cg"
-        if mode == "direct" and last.pad_rows:
-            # Densifying probes vmap the operator; the distributed
-            # shard_map apply doesn't vmap — iterate CG instead (a sharded
-            # coarsest level is already unusual).
-            mode = "cg"
         if mode == "direct":
-            use_analytic = not last.spec.is_composite and not last.pad_rows
+            use_analytic = not last.spec.is_composite
             dense = None
             if last.spec.is_composite and cfg.problem == "poisson":
                 # Composite coarsest: assemble the dense operator (incl.
@@ -1047,8 +509,6 @@ def build_context(
     else:
         f0 = rhs_grid(problem, mesh_type, spec0.primary.ny, spec0.primary.nx, dtype)
     b0 = composite_rhs(f0, spec0.gids)
-    if levels[0].pad_rows:
-        b0 = (jnp.pad(b0[0], ((0, levels[0].pad_rows), (0, 0))),) + b0[1:]
     if plan is not None:
         from multigrid_petsc_tpu.parallel.device_mesh import put_sharded
 
@@ -1069,7 +529,7 @@ def build_context(
             outer_dtype=None,
         )
         out.precond_ctx = build_context(pcfg, problem, plan=plan)
-        assert [l.padded_shapes for l in out.precond_ctx.levels] == [
-            l.padded_shapes for l in levels
+        assert [l.shapes for l in out.precond_ctx.levels] == [
+            l.shapes for l in levels
         ], "precond context level shapes must match"
     return out

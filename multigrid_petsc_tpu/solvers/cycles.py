@@ -25,7 +25,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from multigrid_petsc_tpu.ops.norms import tree_dot, tree_norm2
+from multigrid_petsc_tpu.ops.norms import tree_dot, tree_norm2, vdot
 from multigrid_petsc_tpu.solvers.context import MGContext, State
 from multigrid_petsc_tpu.solvers.outer import OuterResult, outer_iterate
 
@@ -54,7 +54,7 @@ def _grid_monitor(ctx: MGContext, residual_fn, b: State):
         r_grid = aux["r_grid"]
         for g in range(G):
             r_grid = r_grid.at[g, idx].set(
-                jnp.sqrt(jnp.vdot(rr[g], rr[g]).real)
+                jnp.sqrt(vdot(rr[g], rr[g]).real)
             )
         return {"r_global": r_global, "r_grid": r_grid}
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from multigrid_petsc_tpu.ops.norms import tree_norm2
+from multigrid_petsc_tpu.ops.norms import tree_norm2, vdot
 from multigrid_petsc_tpu.ops.transfer import prolong_bilinear, restrict_fw
 from multigrid_petsc_tpu.solvers.context import MGContext, State
 from multigrid_petsc_tpu.solvers.outer import OuterResult
@@ -91,7 +91,7 @@ def solve_delayed(ctx: MGContext, kind: CycleType, b0: State | None = None) -> O
             r_global = r_global.at[idx].set(tree_norm2(rr))
             for g in range(G):
                 r_grid = r_grid.at[g, idx].set(
-                    jnp.sqrt(jnp.vdot(rr[g], rr[g]).real)
+                    jnp.sqrt(vdot(rr[g], rr[g]).real)
                 )
             u = jax.lax.cond(
                 s < v,

@@ -20,7 +20,7 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 
-from multigrid_petsc_tpu.ops.norms import tree_dot, tree_norm2
+from multigrid_petsc_tpu.ops.norms import tree_dot, tree_norm2, vdot
 from multigrid_petsc_tpu.solvers.context import MGContext, State
 from multigrid_petsc_tpu.solvers.outer import OuterResult
 from multigrid_petsc_tpu.solvers.vcycle import mg_apply
@@ -29,8 +29,8 @@ from multigrid_petsc_tpu.solvers.vcycle import mg_apply
 def _mg_precond(ctx: MGContext, v0: int, v1: int) -> Callable[[State], State]:
     """The V-cycle preconditioner closure, routed through the
     reduced-precision context when cfg.precond_dtype is set (the bf16
-    preconditioner halves HBM bytes per application; the Krylov outer
-    keeps full accuracy — M only shapes the rate)."""
+    preconditioner halves the device-memory bytes per application; the
+    Krylov outer keeps full accuracy — M only shapes the rate)."""
     pctx = ctx.precond_ctx
     if pctx is None:
         return lambda r: mg_apply(ctx, r, v0, v1)
@@ -55,28 +55,6 @@ def solve_mgcg(ctx: MGContext, b0: State | None = None) -> OuterResult:
     b = ctx.b0 if b0 is None else b0
     max_iter, hist_len = cfg.max_iter, cfg.hist_len
 
-    # The fused path's mg_apply_cgdown indexes ctx.levels[1]; a 1-level
-    # hierarchy must stay on the generic loop (ADVICE r3: IndexError at
-    # trace time otherwise).
-    if (lvl0.papply is not None and ctx.precond_ctx is None
-            and len(ctx.levels) > 1):
-        # Manual-DMA variant (ops.pallas.mdma_kernel): lane-padded
-        # carries, DMA/compute overlap in every fine-level kernel, and
-        # the CG axpy folded into the direction step.  Compiled TPU only
-        # (interpret-mode coverage comes from the parity tests; on CPU
-        # the explicit backend='pallas' opt-in mirrors the dist path).
-        try:
-            platform = jax.devices()[0].platform
-        except Exception:  # pragma: no cover
-            platform = "cpu"
-        if lvl0.mdma_ok and lvl0.steps_fn is not None and (
-                platform == "tpu" or cfg.backend == "pallas"):
-            ctx.solver_path = "mdma"
-            return _solve_mgcg_fused_mdma(ctx, b, interpret=platform != "tpu")
-        ctx.solver_path = "fused"
-        return _solve_mgcg_fused(ctx, b)
-
-    ctx.solver_path = "generic"
     precond = _mg_precond(ctx, v0, v1)
     # A reduced-precision preconditioner is only approximately symmetric/
     # constant; plain PCG's Fletcher-Reeves beta loses conjugacy there
@@ -132,341 +110,6 @@ def solve_mgcg(ctx: MGContext, b0: State | None = None) -> OuterResult:
     )
 
 
-def build_coarse_tree(ctx: MGContext, interpret: bool = False):
-    """(start_level, solver) for the single-dispatch coarse-tree kernel
-    (ops/pallas/coarse_tree_kernel.py), or None.  The earliest level from
-    which EVERY remaining level fits the kernel's constraints wins —
-    below it the whole sub-V-cycle runs as one Pallas call instead of
-    ~2 visits x ~8 levels of dispatches."""
-    from multigrid_petsc_tpu.ops.pallas import coarse_tree_kernel as ctk
-    from multigrid_petsc_tpu.ops.pallas.stencil_kernel import (
-        chebyshev_step_coeffs,
-        jacobi_step_coeffs,
-    )
-    from multigrid_petsc_tpu.ops.stencil import Stencil5
-    from multigrid_petsc_tpu.solvers.vcycle import _visit_sweeps
-    from multigrid_petsc_tpu.utils.config import SmootherType
-
-    cfg = ctx.config
-    v0, v1 = cfg.v
-    L = len(ctx.levels)
-    for l_t in range(1, L - 1):
-        lv = ctx.levels[l_t:]
-        if any(len(l.spec.grids) != 1 or l.spec.is_composite
-               or l.dist is not None or l.pad_rows
-               or not isinstance(l.stencils[0], Stencil5)
-               for l in lv):
-            continue
-        shapes = [l.spec.primary.shape for l in lv]
-        if not ctk.coarse_tree_viable(shapes, ctx.dtype):
-            continue
-        steps_list = []
-        for j, l in enumerate(lv):
-            kj = _visit_sweeps(ctx, l_t + j, v0, v1)
-            smk = cfg.smoother_at(l_t + j, L)
-            if smk == SmootherType.JACOBI:
-                steps_list.append(jacobi_step_coeffs(kj, cfg.omega))
-            elif smk == SmootherType.CHEBYSHEV and l.lmax is not None:
-                steps_list.append(chebyshev_step_coeffs(kj, l.lmax))
-            else:
-                steps_list = None
-                break
-        if steps_list is None:
-            continue
-        a_inv = None
-        if lv[-1].coarse_solve is not None:
-            mode = cfg.coarse_solver
-            nyL, nxL = shapes[-1]
-            if mode == "auto":
-                mode = ("direct" if nyL * nxL <= cfg.max_direct_size
-                        else "cg")
-            if mode != "direct":
-                continue  # cg coarse solve: keep the generic path
-            if not ctk.coarse_tree_viable(shapes, ctx.dtype, direct=True):
-                continue  # coarsest too large for the unrolled dense dots
-            import numpy as _np
-
-            from multigrid_petsc_tpu.solvers import coarse as coarse_mod
-
-            a = coarse_mod.dense_from_stencil(lv[-1].stencils[0], nyL, nxL)
-            a_inv = _np.linalg.inv(a)
-        fn = ctk.make_coarse_tree_solver(
-            [l.stencils[0] for l in lv], shapes, tuple(steps_list),
-            a_inv=a_inv, interpret=interpret)
-        return l_t, fn
-    return None
-
-
-def mdma_plan(ctx: MGContext, interpret: bool = False) -> dict:
-    """The manual-DMA solve's data plan as named closures — shared by
-    ``_solve_mgcg_fused_mdma`` and the per-piece perf probes
-    (benchmarks/probe_mdma_glue.py), so what gets probed IS the
-    production code."""
-    from multigrid_petsc_tpu.ops.pallas import mdma_kernel as mdma
-    from multigrid_petsc_tpu.solvers.vcycle import _cycle, _visit_sweeps
-
-    cfg = ctx.config
-    v0, v1 = cfg.v
-    lvl0 = ctx.levels[0]
-    st = lvl0.stencils[0]
-    ny, nx = lvl0.spec.primary.shape
-    nyc = (ny - 1) // 2
-    nxc = (nx - 1) // 2
-    k = _visit_sweeps(ctx, 0, v0, v1)
-    steps = lvl0.steps_fn(k)
-
-    def pad2(x, rows, cols):
-        rp, cp = mdma.shape_pad(rows, cols)
-        return jnp.pad(x, ((0, rp - x.shape[0]), (0, cp - x.shape[1])))
-
-    def _level_mdma_ok(l: int, dtype) -> bool:
-        lvl = ctx.levels[l]
-        if l == len(ctx.levels) - 1:
-            return False
-        nyl, nxl = lvl.spec.primary.shape
-        kl = _visit_sweeps(ctx, l, v0, v1)
-        return (not lvl.spec.is_composite and lvl.dist is None
-                and not lvl.pad_rows and lvl.steps_fn is not None
-                and mdma.mdma_viable(nyl, nxl, kl, dtype))
-
-    def _adjacent(l: int) -> bool:
-        """Next level is a single grid exactly one gap down — the mdma
-        kernels' rc output IS its padded rhs and its solution IS the
-        up-visit's e_c (no transfer glue at all)."""
-        nxt = ctx.levels[l + 1]
-        return (len(nxt.spec.grids) == 1 and not nxt.spec.is_composite
-                and nxt.spec.primary.g - ctx.levels[l].spec.primary.g == 1
-                and not nxt.pad_rows)
-
-    tree = build_coarse_tree(ctx, interpret=interpret)
-
-    def _coarse_from_rc(l: int, rc):
-        """Solve levels > l given level l's FULLY restricted residual in
-        shape_pad(nycl, nxcl) layout; return the padded coarse correction
-        the up visit consumes (same layout)."""
-        nyl, nxl = ctx.levels[l].spec.primary.shape
-        nycl, nxcl = (nyl - 1) // 2, (nxl - 1) // 2
-        if _adjacent(l):
-            if tree is not None and l + 1 == tree[0]:
-                # Whole remaining sub-hierarchy in ONE kernel.
-                u_next = tree[1](rc[:nycl, :nxcl])
-                return pad2(u_next, nycl, nxcl)
-            if _level_mdma_ok(l + 1, rc.dtype):
-                return cycle_mdma_pad(l + 1, rc)
-            u_next = _cycle(ctx, l + 1, (rc[:nycl, :nxcl],), None,
-                            v0, v1, False)
-            return pad2(u_next[0].astype(rc.dtype), nycl, nxcl)
-        # General fallback (multi-gap or composite next level): unpad and
-        # use the context transfers; prolong_half lands exactly one gap
-        # below level l's primary grid = the (nycl, nxcl) coarse layout.
-        b_next = ctx.restrict_rc1(l, rc[:nycl, :nxcl])
-        if len(b_next) == 1 and _level_mdma_ok(l + 1, rc.dtype):
-            u_next = (cycle_mdma_pad_entry(l + 1, b_next[0]),)
-        else:
-            u_next = _cycle(ctx, l + 1, b_next, None, v0, v1, False)
-        e_c = ctx.prolong_half(l, u_next)
-        return pad2(e_c.astype(rc.dtype), nycl, nxcl)
-
-    def cycle_mdma_pad(l: int, b_pad):
-        """V-cycle from mdma-eligible level ``l`` on a PADDED rhs (the
-        parent's rc output verbatim); returns the padded solution."""
-        lvl = ctx.levels[l]
-        nyl, nxl = lvl.spec.primary.shape
-        kl = _visit_sweeps(ctx, l, v0, v1)
-        steps_l = lvl.steps_fn(kl)
-        st_l = lvl.stencils[0]
-        u0, rc = mdma.visit_down_mdma(st_l, b_pad, steps_l, ny=nyl,
-                                      nx=nxl, interpret=interpret)
-        e_c = _coarse_from_rc(l, rc)
-        return mdma.visit_up_mdma(st_l, b_pad, u0, e_c, steps_l, ny=nyl,
-                                  nx=nxl, emit_dot=False,
-                                  interpret=interpret)
-
-    def cycle_mdma_pad_entry(l: int, b2d):
-        return cycle_mdma_pad(l, pad2(b2d, *ctx.levels[l].spec.primary.shape))
-
-    def cycle_mdma(l: int, b2d):
-        """V-cycle from level ``l`` >= 1 on an UNPADDED single-grid rhs;
-        returns the unpadded level-l solution.  Levels in the mdma shape
-        envelope run the manual-DMA visit kernels; smaller/irregular
-        levels (and the coarsest) fall back to the generic _cycle."""
-        if not _level_mdma_ok(l, b2d.dtype):
-            return _cycle(ctx, l, (b2d,), None, v0, v1, False)[0]
-        nyl, nxl = ctx.levels[l].spec.primary.shape
-        return cycle_mdma_pad_entry(l, b2d)[:nyl, :nxl]
-
-    def coarse_correction(rc):
-        """Everything between the level-0 down and up visits, given the
-        kernel-emitted fully restricted residual (padded coarse layout)."""
-        return _coarse_from_rc(0, rc)
-
-    def precond(r_pad, ap_pad, alpha):
-        """(z, <r', z>, r', ||r'||^2) with r' = r - alpha ap and z = M r'
-        — the full preconditioner application, manual-DMA on every level
-        in the shape envelope.  The inter-level transfers ride INSIDE the
-        kernels (in-VMEM x-restriction/prolongation): for adjacent
-        single-grid levels the only XLA work between kernels is the
-        coarsest-level solve."""
-        u0, rc, r_new, rn2 = mdma.cg_visit_down_mdma(
-            st, r_pad, ap_pad, alpha, steps, ny=ny, nx=nx,
-            interpret=interpret)
-        e_c = coarse_correction(rc)
-        z, rz = mdma.visit_up_mdma(st, r_new, u0, e_c, steps, ny=ny,
-                                   nx=nx, interpret=interpret)
-        return z, rz, r_new, rn2
-
-    return {
-        "pad2": pad2,
-        "cycle_mdma": cycle_mdma,
-        "coarse_correction": coarse_correction,
-        "precond": precond,
-        "steps": steps,
-        "st": st,
-        "shape": (ny, nx),
-    }
-
-
-def _solve_mgcg_fused_mdma(ctx: MGContext, b: State,
-                           interpret: bool = False) -> OuterResult:
-    """PCG over the manual-DMA kernels (ops.pallas.mdma_kernel).
-
-    Algebraically identical to _solve_mgcg_fused with three changes in
-    the data plan, none in the math:
-
-      * the level-0 state (u, r, z, p) is carried LANE-PADDED to a
-        128-multiple width (Mosaic requires it for HBM row-window DMA);
-        the pad columns are the zero Dirichlet east boundary and every
-        kernel keeps them exactly zero,
-      * each fine-level kernel streams its own halo-extended row windows
-        via double-buffered in-kernel DMA overlapped with compute
-        (probe_dma.py: ~0.91x triad vs ~0.5x for the auto-pipelined
-        fresh-output path),
-      * the CG solution update u += alpha p rides the NEXT iteration's
-        direction kernel with the lagged alpha (cg_papply_u_mdma), so
-        the separate 3-pass XLA axpy disappears; the final update is
-        flushed once after the loop.
-
-    Differences from the generic path are reduction order only.
-    """
-    from multigrid_petsc_tpu.ops.pallas import mdma_kernel as mdma
-
-    cfg = ctx.config
-    lvl0 = ctx.levels[0]
-    st = lvl0.stencils[0]
-    ny, nx = lvl0.spec.primary.shape
-    max_iter, hist_len = cfg.max_iter, cfg.hist_len
-    plan = mdma_plan(ctx, interpret=interpret)
-    pad2 = plan["pad2"]
-    precond = plan["precond"]
-
-    bnorm = tree_norm2(b)
-    rn0 = bnorm  # u0 = 0 -> r0 = b exactly
-    b_p = pad2(b[0], ny, nx)
-    zero = jnp.asarray(0.0, b_p.dtype)
-    z, rz, r, _ = precond(b_p, jnp.zeros_like(b_p), zero)
-    u = jnp.zeros_like(b_p)
-    p = jnp.zeros_like(b_p)
-    hist = jnp.zeros(hist_len + 1, dtype=rn0.dtype).at[0].set(rn0)
-
-    def cond(c):
-        u, r, z, p, rz, beta, alpha_prev, i, rn, hist = c
-        return ((i < max_iter) & (cfg.divtol * bnorm > rn)
-                & (rn > cfg.rtol * bnorm))
-
-    def body(c):
-        u, r, z, p, rz, beta, alpha_prev, i, rn, hist = c
-        # z, p, u donated into (ap, p', u'); u' lags by one alpha.
-        pn, ap, u, pap = mdma.cg_papply_u_mdma(
-            st, z, p, u, alpha_prev, beta, ny=ny, nx=nx,
-            interpret=interpret)
-        p = pn
-        alpha = jnp.where(pap != 0, rz / pap, 0.0)  # breakdown guard
-        z, rz_new, r, rn2 = precond(r, ap, alpha)
-        rn = jnp.sqrt(rn2)
-        beta = jnp.where(rz != 0, rz_new / rz, 0.0)
-        hist = hist.at[jnp.minimum(i + 1, hist_len)].set(rn)
-        return (u, r, z, p, rz_new, beta, alpha, i + 1, rn, hist)
-
-    u, r, z, p, rz, beta, alpha_prev, iters, rn, hist = jax.lax.while_loop(
-        cond, body, (u, r, z, p, rz, zero, zero, 0, rn0, hist)
-    )
-    # Flush the lagged update: the last alpha was never applied in-loop.
-    u = u + alpha_prev * p
-    return OuterResult(
-        u=(u[:ny, :nx],),
-        rnorm_history=hist / hist[0],
-        iters=iters,
-        converged=rn <= cfg.rtol * bnorm,
-    )
-
-
-def _solve_mgcg_fused(ctx: MGContext, b: State) -> OuterResult:
-    """PCG over the fused CG kernels (single-grid Pallas level 0 only,
-    plain fixed preconditioner): algebraically identical to solve_mgcg,
-    with the fine-grid HBM traffic cut roughly in half —
-
-      * the direction step p' = z + beta p, the operator apply A p', and
-        the curvature product <p', A p'> run as ONE kernel with both big
-        inputs donated (ops.pallas.cg_papply_pallas);
-      * the preconditioner inner product <r, z> is emitted by the V-cycle's
-        final fused up-visit (vcycle.mg_apply_dot) instead of a separate
-        2-pass reduction;
-      * every preconditioner V-cycle runs zero-guess kernels (no zeros
-        materialization or reads).
-
-    Differences from the generic path are reduction ORDER only (per-block
-    partial sums); the iterates match to f32 roundoff.
-    """
-    from multigrid_petsc_tpu.solvers.vcycle import mg_apply_cgdown, mg_apply_dot
-
-    cfg = ctx.config
-    v0, v1 = cfg.v
-    lvl0 = ctx.levels[0]
-    max_iter, hist_len = cfg.max_iter, cfg.hist_len
-
-    bnorm = tree_norm2(b)
-    rn0 = bnorm  # u0 = 0 -> r0 = b exactly
-    r = b
-    z, rz = mg_apply_dot(ctx, r, v0, v1)
-    u = lvl0.zeros(ctx.dtype)
-    p = lvl0.zeros(ctx.dtype)  # papply with beta=0 ignores its value
-    beta0 = jnp.asarray(0.0, rz.dtype)
-    hist = jnp.zeros(hist_len + 1, dtype=rn0.dtype).at[0].set(rn0)
-
-    def cond(c):
-        u, r, z, p, rz, beta, i, rn, hist = c
-        return ((i < max_iter) & (cfg.divtol * bnorm > rn)
-                & (rn > cfg.rtol * bnorm))
-
-    def body(c):
-        u, r, z, p, rz, beta, i, rn, hist = c
-        # z and p are donated into (ap, p_new) — dead afterwards.
-        p0, ap, pap = lvl0.papply(z[0], p[0], beta)
-        p = (p0,)
-        alpha = jnp.where(pap != 0, rz / pap, 0.0)  # breakdown guard
-        u = tuple(uk + alpha * pk for uk, pk in zip(u, p))
-        # r' = r - alpha ap folded into the preconditioner's down visit
-        # (r and ap donated; ||r'|| and <r', z> emitted by the kernels).
-        z, rz_new, r_new, rn2 = mg_apply_cgdown(
-            ctx, r[0], ap, alpha, v0, v1
-        )
-        r = (r_new,)
-        rn = jnp.sqrt(rn2)
-        beta = jnp.where(rz != 0, rz_new / rz, 0.0)
-        hist = hist.at[jnp.minimum(i + 1, hist_len)].set(rn)
-        return (u, r, z, p, rz_new, beta, i + 1, rn, hist)
-
-    u, r, z, p, rz, beta, iters, rn, hist = jax.lax.while_loop(
-        cond, body, (u, r, z, p, rz, beta0, 0, rn0, hist)
-    )
-    return OuterResult(
-        u=u,
-        rnorm_history=hist / hist[0],
-        iters=iters,
-        converged=rn <= cfg.rtol * bnorm,
-    )
-
-
 def outer_precision_operator(ctx: MGContext, odt):
     """(apply_fn, stencil) evaluating the FINE-level operator of ``ctx``'s
     own problem family in the outer dtype — the f64 defect-correction
@@ -507,8 +150,8 @@ def _solve_mgcg_mixed_tf(
 ) -> OuterResult:
     """Two-float32 outer PCG (``outer_dtype="float32x2"``): the defect-
     correction outer runs in double-single arithmetic (ops/twofloat.py)
-    instead of emulated f64 — same 1e-8 certification up to ~8193^2, at
-    f32 bandwidth (~40x faster per outer iteration on TPU).
+    instead of native f64 — same 1e-8 certification up to ~8193^2, moving
+    two f32 words per element like f64 does.
 
     The CG scalars (alpha, beta, norms) are plain f32: only the vector
     updates and the operator apply set the attainable-residual floor; a
@@ -523,18 +166,12 @@ def _solve_mgcg_mixed_tf(
     assert not lvl0.spec.is_composite, "mixed outer: simple fine level only"
     g0 = lvl0.spec.primary
     apply_tf, _ = outer_precision_operator_tf(ctx)
-    pad0 = lvl0.pad_rows
 
     inner_precond = _mg_precond(ctx, v0, v1)
 
     def precond(r: tf.TF) -> tf.TF:
         # hi is the correctly-rounded f32 view of the double-single value.
-        r32 = r.hi.astype(ctx.dtype)
-        if pad0:
-            r32 = jnp.pad(r32, ((0, pad0), (0, 0)))
-        z = inner_precond((r32,))[0]
-        if pad0:
-            z = z[: g0.ny]
+        z = inner_precond((r.hi.astype(ctx.dtype),))[0]
         return tf.from_f32(z.astype(jnp.float32))
 
     # b0 arrives evaluated in f64 (solve() does this); split exactly.
@@ -597,9 +234,9 @@ def solve_mgcg_mixed(
     """Mixed-precision mg-CG: f64 outer PCG, f32 MG V-cycle preconditioner.
 
     The CG iteration (operator applies, vector updates, inner products)
-    runs entirely in ``outer_dtype`` — one emulated-f64 stencil apply per
-    iteration — while the expensive preconditioner (the multigrid V-cycle
-    with its fused Pallas kernels) runs in the f32 working dtype.  A
+    runs entirely in ``outer_dtype`` — one f64 stencil apply per
+    iteration — while the expensive preconditioner (the multigrid V-cycle)
+    runs in the f32 working dtype.  A
     low-precision *preconditioner* only affects the convergence rate;
     attainable accuracy follows the f64 operator (~eps64 * kappa), so this
     certifies 1e-8 residuals even at 8193^2 where iterative-refinement
@@ -618,18 +255,11 @@ def solve_mgcg_mixed(
     assert not lvl0.spec.is_composite, "mixed outer: simple fine level only"
     g0 = lvl0.spec.primary
     apply64, _ = outer_precision_operator(ctx, odt)
-    pad0 = lvl0.pad_rows  # distributed levels: preconditioner is padded
 
     inner_precond = _mg_precond(ctx, v0, v1)
 
     def precond(r64):
-        r32 = r64.astype(ctx.dtype)
-        if pad0:
-            r32 = jnp.pad(r32, ((0, pad0), (0, 0)))
-        z = inner_precond((r32,))[0]
-        if pad0:
-            z = z[: g0.ny]
-        return z.astype(odt)
+        return inner_precond((r64.astype(ctx.dtype),))[0].astype(odt)
 
     # NOTE: callers must supply b0 already evaluated in the outer dtype
     # (solve() does); upcasting an f32 RHS would bake an eps32*||b|| error
@@ -645,7 +275,7 @@ def solve_mgcg_mixed(
     rn0 = jnp.linalg.norm(r.ravel())
     z = precond(r)
     p = z
-    rz = jnp.vdot(r.ravel(), z.ravel())
+    rz = vdot(r.ravel(), z.ravel())
     hist = jnp.zeros(hist_len + 1, dtype=odt).at[0].set(rn0)
 
     def cond(c):
@@ -659,14 +289,14 @@ def solve_mgcg_mixed(
     def body(c):
         u, r, r_prev, p, rz, i, rn, hist = c
         ap = apply64(p)
-        alpha = rz / jnp.vdot(p.ravel(), ap.ravel())
+        alpha = rz / vdot(p.ravel(), ap.ravel())
         u = u + alpha * p
         r_new = r - alpha * ap
         rn = jnp.linalg.norm(r_new.ravel())
         z = precond(r_new)
-        rz_new = jnp.vdot(r_new.ravel(), z.ravel())
+        rz_new = vdot(r_new.ravel(), z.ravel())
         if flexible:
-            num = rz_new - jnp.vdot(r.ravel(), z.ravel())
+            num = rz_new - vdot(r.ravel(), z.ravel())
             beta = jnp.maximum(num / rz, 0.0)
         else:
             beta = rz_new / rz
@@ -713,7 +343,7 @@ def solve_mgfgmres(ctx: MGContext, b0: State | None = None,
     cfg = ctx.config
     v0, v1 = cfg.v
     lvl0 = ctx.levels[0]
-    shapes = lvl0.padded_shapes
+    shapes = lvl0.shapes
     m = restart if restart is not None else cfg.fgmres_restart
     b = ctx.b0 if b0 is None else b0
     hist_len = cfg.hist_len
@@ -757,7 +387,7 @@ def solve_mgfgmres(ctx: MGContext, b0: State | None = None,
             # Masked MGS: orthogonalize against V[i] for i <= j only.
             def mgs(i, wh):
                 w, hcol = wh
-                hij = jnp.where(i <= j, jnp.vdot(V[i], w), 0.0)
+                hij = jnp.where(i <= j, vdot(V[i], w), 0.0)
                 return (w - hij * V[i], hcol.at[i].set(hij))
 
             w, hcol = jax.lax.fori_loop(
@@ -799,7 +429,9 @@ def solve_mgfgmres(ctx: MGContext, b0: State | None = None,
 
         Rsafe = R + jnp.diag(jnp.where(jnp.abs(jnp.diag(R)) > 0, 0.0, 1.0))
         y = solve_triangular(Rsafe, g[:m], lower=False)
-        return u + Z.T @ y
+        # HIGHEST: an f32 product may otherwise run in TF32 on the GPU
+        # (about three decimal digits).
+        return u + jnp.matmul(Z.T, y, precision=jax.lax.Precision.HIGHEST)
 
     def cond(c):
         u, i, rn, hist = c

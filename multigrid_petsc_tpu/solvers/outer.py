@@ -44,7 +44,7 @@ def outer_iterate(
     monitor=None,
 ) -> OuterResult:
     """``step_emits_residual``: the step returns (u, r) with r = b - A u
-    already computed (free inside the fused Pallas post-smoother), so the
+    already computed (by the level-0 up visit), so the
     convergence norm costs no extra operator application.
 
     ``monitor``: optional ``(aux0, update)`` pair — the per-iteration

@@ -2,10 +2,10 @@
 
 The reference's smoother is a fixed-sweep Richardson KSP with norms off and
 PETSc's default preconditioner (reference: src/solver.c:1463-1510).  The
-TPU-native framework pins explicit, compiler-friendly smoothers instead
-(SURVEY.md section 7 hard-part 3): damped Jacobi, Chebyshev-accelerated
-Jacobi, and red-black Gauss-Seidel; all are fixed trip-count lax loops with
-no data-dependent control flow (jit/Pallas friendly).
+framework pins explicit, compiler-friendly smoothers instead (SURVEY.md
+section 7 hard-part 3): damped Jacobi, Chebyshev-accelerated Jacobi, and
+red-black Gauss-Seidel; all are fixed trip-count lax loops with no
+data-dependent control flow.
 
 A smoother acts on a level state ``u`` (tuple of per-grid arrays) given the
 level's matrix-free apply and the tuple of inverse diagonals.
@@ -17,6 +17,8 @@ from typing import Callable, Sequence
 
 import jax
 import jax.numpy as jnp
+
+from multigrid_petsc_tpu.ops.norms import vdot
 
 
 State = tuple  # tuple of per-grid 2-D arrays
@@ -54,8 +56,8 @@ def chebyshev(
     """Chebyshev-accelerated Jacobi smoothing on [lmin_frac*lmax, scale*lmax].
 
     ``lmax`` is an upper bound on the spectrum of D^-1 A (estimate with
-    ``estimate_dinv_a_lmax``).  Fixed-k Chebyshev needs no inner products —
-    ideal on TPU (no collectives inside the smoother when sharded).
+    ``estimate_dinv_a_lmax``).  Fixed-k Chebyshev needs no inner products,
+    so a sharded smoother runs no collectives.
     """
     lo = lmin_frac * lmax
     hi = lmax_scale * lmax
@@ -87,6 +89,31 @@ def chebyshev(
     return u
 
 
+def jacobi_step_coeffs(sweeps: int, omega: float) -> tuple:
+    """(alpha, beta) steps of damped Jacobi in the polynomial-smoother form
+    z = D^-1 (b - A u); p = beta p + alpha z; u = u + p."""
+    return tuple((omega, 0.0) for _ in range(sweeps))
+
+
+def chebyshev_step_coeffs(sweeps: int, lmax: float,
+                          lmin_frac: float = 0.1,
+                          lmax_scale: float = 1.05) -> tuple:
+    """(alpha, beta) steps reproducing ``chebyshev`` (same theta/delta/rho
+    recurrence)."""
+    lo = lmin_frac * lmax
+    hi = lmax_scale * lmax
+    theta = 0.5 * (hi + lo)
+    delta = 0.5 * (hi - lo)
+    sigma = theta / delta
+    steps = [(1.0 / theta, 0.0)]
+    rho = 1.0 / sigma
+    for _ in range(sweeps - 1):
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        steps.append((2.0 * rho_new / delta, rho_new * rho))
+        rho = rho_new
+    return tuple(steps)
+
+
 def composite_block_gs(
     stencils,
     gids: tuple[int, ...],
@@ -102,7 +129,7 @@ def composite_block_gs(
     The reference smooths the composite matrix with Richardson + PETSc's
     default ILU/block-Jacobi preconditioner (src/solver.c:2011-2020), which
     point-Jacobi cannot replace (the coupling blocks break diagonal
-    dominance).  The TPU-native equivalent: one sweep visits the level's
+    dominance).  The matrix-free equivalent: one sweep visits the level's
     grids fine-to-coarse, moving the inter-grid couplings to the RHS with
     the LATEST iterates and running ``inner`` damped-Jacobi iterations on
     the grid's own 5-point block.  With couplings R*A_f / A_f*P this is a
@@ -160,7 +187,7 @@ def estimate_dinv_a_lmax(
     v = tuple(v)
 
     def norm(xs):
-        return jnp.sqrt(sum(jnp.vdot(x, x) for x in xs).real)
+        return jnp.sqrt(sum(vdot(x, x) for x in xs).real)
 
     def body(_, carry):
         v, _ = carry

@@ -9,9 +9,8 @@ src/solver.c:1414-1575 MultigridVcycle): per outer iteration
     (src/solver.c:1539-1544),
 with the stopping rule and history handled by ``outer_iterate``.
 
-TPU-native: the level recursion unrolls at trace time (static level count),
-every operator is matrix-free, and the whole solve is one jitted
-lax.while_loop.
+The level recursion unrolls at trace time (static level count), every
+operator is matrix-free, and the whole solve is one jitted lax.while_loop.
 """
 
 from __future__ import annotations
@@ -29,17 +28,16 @@ def v_cycle(
     """One V-cycle starting/ending on level 0.
 
     With ``emit_r`` the level-0 post-smoother also returns the final
-    residual b - A u (free inside the fused Pallas visit; one extra apply
-    otherwise) so the outer loop's convergence norm costs no extra pass.
+    residual b - A u, which the outer loop's convergence norm reuses.
 
-    Each level visit runs through LevelCtx.visit_down / visit_up: on
-    Pallas-eligible levels those are single fused kernels folding
-    residual + first restriction gap (down) and last prolongation gap +
-    correction (up) into the smoother's read of (u, b).
+    Each level visit runs through LevelCtx.visit_down / visit_up: the
+    smoother plus residual and first restriction gap (down), and the last
+    prolongation gap plus correction and smoother (up).  On CUDA-smoother
+    levels the sweeps and residual of a visit are one kernel.
 
     ``u0=None`` means zero initial guess (every preconditioner
-    application, and every down-leg level below the finest): the fused
-    kernels then skip materializing + reading the zeros array entirely.
+    application, and every down-leg level below the finest): the CUDA
+    smoother then never reads an initial u.
     """
     return _cycle(ctx, 0, b0, u0, v0, v1, emit_r)
 
@@ -57,8 +55,7 @@ def _visit_sweeps(ctx, l: int, v0: int, v1: int) -> int:
 
 def _cycle(ctx, l: int, b: State, u: State | None, v0: int, v1: int,
            emit: bool):
-    """The V-cycle recursion from level ``l`` down (shared by v_cycle and
-    mg_apply_dot)."""
+    """The V-cycle recursion from level ``l`` down."""
     L = len(ctx.levels)
     lvl = ctx.levels[l]
     k = _visit_sweeps(ctx, l, v0, v1)
@@ -82,44 +79,6 @@ def mg_apply(ctx: MGContext, r: State, v0: int, v1: int) -> State:
     preconditioner used by the Krylov outer loops and the PCMG-equivalent
     Richardson driver."""
     return v_cycle(ctx, r, None, v0, v1)
-
-
-def mg_apply_dot(ctx: MGContext, r: State, v0: int, v1: int):
-    """(M r, <r, M r>): the preconditioner application with its CG inner
-    product emitted by the level-0 fused up-visit kernel (free — the
-    kernel already holds b = r and the final u = M r in VMEM).  Falls
-    back to mg_apply + tree_dot when the fused path is unavailable."""
-    from multigrid_petsc_tpu.ops.norms import tree_dot
-
-    lvl0 = ctx.levels[0]
-    if len(ctx.levels) == 1 or lvl0.visit_up_dot is None:
-        z = mg_apply(ctx, r, v0, v1)
-        return z, tree_dot(r, z)
-    k = _visit_sweeps(ctx, 0, v0, v1)
-    u, rc1 = lvl0.visit_down(r, None, k)
-    b_next = ctx.restrict_rc1(0, rc1)
-    u_next = _cycle(ctx, 1, b_next, None, v0, v1, False)
-    e_c = ctx.prolong_half(0, u_next)
-    return lvl0.visit_up_dot(r, u, e_c, k)
-
-
-def mg_apply_cgdown(ctx: MGContext, r, ap, alpha, v0: int, v1: int):
-    """One fused-CG preconditioner application folding the CG residual
-    update into the level-0 down visit:
-
-        r' = r - alpha ap;  z = M r';  returns (z, <r', z>, r', ||r'||^2)
-
-    r and ap are donated (see ops.pallas.cg_visit_down_pallas); the two
-    inner products ride the kernels for free.  Only called on contexts
-    whose level 0 has the fused CG kernels."""
-    lvl0 = ctx.levels[0]
-    k = _visit_sweeps(ctx, 0, v0, v1)
-    u0, rc1, r_new, rn2 = lvl0.cg_visit_down(r, ap, alpha, k)
-    b_next = ctx.restrict_rc1(0, rc1)
-    u_next = _cycle(ctx, 1, b_next, None, v0, v1, False)
-    e_c = ctx.prolong_half(0, u_next)
-    z, rz = lvl0.visit_up_dot((r_new,), (u0,), e_c, k)
-    return z, rz, r_new, rn2
 
 
 def solve_vcycle(ctx: MGContext, b0: State | None = None) -> OuterResult:

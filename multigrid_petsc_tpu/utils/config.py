@@ -6,7 +6,7 @@ src/poisson.c:51-59 reads -npts -mesh -iter -grids -levels -cycle -map -v
 unsupported-combination guards at src/poisson.c:61-71).
 
 Cycle numbering keeps the reference's values (poisson.in:8) and adds
-TPU-framework extensions (outer Krylov, FMG) above 100.
+framework extensions (outer Krylov, FMG) above 100.
 """
 
 from __future__ import annotations
@@ -42,6 +42,9 @@ class SmootherType(enum.Enum):
     LINE_XY = "line_xy"  # alternating x/y line sweeps
 
 
+BACKENDS = ("auto", "xla", "sparse")
+
+
 @dataclass(frozen=True)
 class SolverConfig:
     """All solver knobs (defaults match the reference's poisson.in)."""
@@ -60,7 +63,7 @@ class SolverConfig:
     view_solver: bool = False  # per-level solver dump after the solve
     # (-view; the reference's always-on KSPView, src/solver.c:1560-1564)
 
-    # TPU-framework knobs (no reference equivalent).
+    # Framework knobs (no reference equivalent).
     problem: str = "poisson"  # "poisson" (5-pt, mesh metrics) | "aniso" (9-pt)
     aniso: tuple = (1.0, 0.0, 1.0, 0.0, 0.0)  # (ax0, ax2, cy0, cy2, b)
     smoother: SmootherType = SmootherType.JACOBI
@@ -79,8 +82,9 @@ class SolverConfig:
     # None -> the reference's (v0 fine/mid, v1 coarsest) semantics.
     level_v: tuple | None = None
     composite_smoother: str = "block_gs"  # smoother on merged-grid levels
-    backend: str = "auto"  # auto | xla | pallas (matrix-free kernel choice)
-    # | sparse (explicit assembled CSR->DIA/ELL operator per level — the
+    backend: str = "auto"  # auto (the CUDA smoother on a GPU's large f32
+    # levels, ops/smooth5_cuda.py) | xla (plain jnp operators everywhere)
+    # | sparse (explicit assembled CSR->ELL operator per level — the
     # reference's always-explicit matrix form, src/solver.c:489-556)
     coarse_solver: str = "auto"  # auto | direct | cg | smooth
     max_direct_size: int = 4096  # densify coarsest op up to this many unknowns
@@ -92,16 +96,15 @@ class SolverConfig:
     outer_dtype: str | None = None  # "float64" | "float32x2" over f32:
     # mixed-precision defect-correction outer loop (residuals/corrections
     # in outer_dtype, MG preconditioner in dtype) — certifies 1e-8
-    # residuals on TPU where f32 alone hits its roundoff floor.
+    # residuals where f32 alone hits its roundoff floor.
     # "float32x2" = double-single arithmetic (ops/twofloat.py): ~2^-47
-    # precision at f32 bandwidth, ~40x faster per outer iteration than
-    # emulated f64 on TPU; good up to ~8193^2 at rtol 1e-8
+    # precision from f32 operations; good up to ~8193^2 at rtol 1e-8
     history_len: int | None = None  # residual-history capacity (default: max_iter)
     fgmres_restart: int = 10  # FGMRES(m) restart length (memory: ~2m+1
     # fine-grid vectors live; lower it for very large grids)
     precond_dtype: str | None = None  # e.g. "bfloat16": run the MG V-cycle
     # preconditioner of the Krylov outers (mg-CG/FGMRES, incl. the mixed
-    # f64 outer) in this dtype — halves the preconditioner's HBM traffic;
+    # f64 outer) in this dtype — halves the preconditioner's memory traffic;
     # the outer Krylov iteration keeps full accuracy (a preconditioner
     # only shapes the rate)
 
@@ -118,6 +121,9 @@ class SolverConfig:
             raise ValueError("Additive2 requires grids <= 2 and levels <= 2")
         if self.levels > self.grids:
             raise ValueError("levels cannot exceed grids")
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}; one of "
+                             f"{', '.join(BACKENDS)}")
         if self.history_len is not None and self.history_len < 1:
             raise ValueError("history_len must be >= 1")
         if (self.level_smoothers is not None
@@ -183,9 +189,14 @@ _KEY_MAP = {
 def parse_options_file(path: str | Path, base: SolverConfig | None = None) -> SolverConfig:
     """Parse a poisson.in-style options file: lines of ``-key value``,
     ``#`` comments (reference: poisson.in:1-14)."""
+    return parse_options(Path(path).read_text().splitlines(), base)
+
+
+def parse_options(lines, base: SolverConfig | None = None) -> SolverConfig:
+    """Apply ``-key value`` lines (options-file syntax) to ``base``."""
     cfg = base or SolverConfig()
     updates = {}
-    for raw in Path(path).read_text().splitlines():
+    for raw in lines:
         line = raw.strip()
         if not line or line.startswith("#"):
             continue

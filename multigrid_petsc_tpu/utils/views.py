@@ -86,21 +86,15 @@ def view_solver(ctx) -> str:
         f"solver: cycle={cfg.cycle.name} v={cfg.v} rtol={cfg.rtol:g} "
         f"divtol={cfg.divtol:g} dtype={cfg.dtype}"
         + (f" outer_dtype={cfg.outer_dtype}" if cfg.outer_dtype else "")
-        + (f" path={ctx.solver_path}" if ctx.solver_path else "")
+        + f" path={ctx.path}"
     ]
     L = len(ctx.levels)
     for l, lvl in enumerate(ctx.levels):
         gs = ", ".join(f"g{g.g}:{g.ny}x{g.nx}" for g in lvl.spec.grids)
-        if lvl.dist is not None:
-            backend = (f"pallas-dist(shard_map x{lvl.dist.P}, "
-                       f"R={lvl.dist.R}, pad={lvl.pad_rows})")
-        elif lvl.sparse_full is not None:
-            sp = lvl.sparse_full
-            form = ("stencil" if sp.stencil_form is not None
-                    else "dia" if sp.dia is not None else "ell")
-            backend = f"sparse({form}, nnz={sp.nnz})"
-        elif lvl.use_pallas_apply:
-            backend = "pallas-fused"
+        if lvl.sparse_full is not None:
+            backend = f"sparse(ell, nnz={lvl.sparse_full.nnz})"
+        elif lvl.cuda_smoother:
+            backend = "cuda-smoother"
         else:
             backend = "xla"
         if lvl.spec.is_composite:

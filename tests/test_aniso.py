@@ -206,110 +206,3 @@ def test_mixed_precision_warm_start():
     assert resumed.iters < full.iters
     np.testing.assert_allclose(resumed.u_fine, full.u_fine,
                                rtol=1e-8, atol=1e-12)
-
-
-def test_fused_line_visit_kernel_parity():
-    """The whole-array-in-VMEM fused line-visit kernel
-    (ops/pallas/line_kernel.py) reproduces the XLA line-smoother
-    composition exactly (interpret mode; VERDICT r4 #5)."""
-    import jax
-
-    jax.config.update("jax_enable_x64", True)
-    from multigrid_petsc_tpu.ops.pallas.line_kernel import (
-        collapse_stencil,
-        line_visit9_pallas,
-        line_visit_viable,
-    )
-    from multigrid_petsc_tpu.ops.stencil import (
-        apply_stencil9,
-        line_jacobi_sweeps_y,
-    )
-    from multigrid_petsc_tpu.ops.transfer import prolong_bilinear, restrict_fw
-    from multigrid_petsc_tpu.problems import stencil9_coefficients
-
-    NY = NX = 127
-    st = collapse_stencil(stencil9_coefficients(
-        AnisoProblem(1.0, 0.0, 100.0, 0.0, 0.0), NY, NX, jnp.float64))
-    assert line_visit_viable(NY, NX, jnp.float64, st)
-    rng = np.random.default_rng(5)
-    b = jnp.asarray(rng.standard_normal((NY, NX)))
-    u = jnp.asarray(rng.standard_normal((NY, NX)))
-
-    got = line_visit9_pallas(st, b, u, 3, 0.9, emit="u", interpret=True)
-    exp = line_jacobi_sweeps_y(st, b, u, 3, 0.9)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(exp),
-                               rtol=1e-12, atol=1e-12)
-
-    u0, rc1 = line_visit9_pallas(st, b, None, 3, 0.9, emit="rc",
-                                 interpret=True)
-    exp0 = line_jacobi_sweeps_y(st, b, jnp.zeros_like(b), 3, 0.9)
-    rr = b - apply_stencil9(st, exp0)
-    np.testing.assert_allclose(np.asarray(u0), np.asarray(exp0),
-                               rtol=1e-12, atol=1e-12)
-    np.testing.assert_allclose(np.asarray(rc1), np.asarray(restrict_fw(rr)),
-                               rtol=1e-12, atol=1e-10)
-
-    e = jnp.asarray(rng.standard_normal(((NY - 1) // 2, (NX - 1) // 2)))
-    z, dot = line_visit9_pallas(st, b, u, 2, 0.9, emit="u", e_coarse=e,
-                                emit_dot=True, interpret=True)
-    expz = line_jacobi_sweeps_y(st, b, u + prolong_bilinear(e), 2, 0.9)
-    np.testing.assert_allclose(np.asarray(z), np.asarray(expz),
-                               rtol=1e-12, atol=1e-12)
-    dref = float(jnp.vdot(b.ravel(), expz.ravel()))
-    assert abs(float(dot) - dref) <= 1e-10 * abs(dref)
-
-    zr, r_out = line_visit9_pallas(st, b, jnp.array(u, copy=True), 2, 0.9,
-                                   emit="ur", interpret=True)
-    expzr = line_jacobi_sweeps_y(st, b, u, 2, 0.9)
-    np.testing.assert_allclose(np.asarray(zr), np.asarray(expzr),
-                               rtol=1e-12, atol=1e-12)
-    np.testing.assert_allclose(
-        np.asarray(r_out), np.asarray(b - apply_stencil9(st, expzr)),
-        rtol=1e-12, atol=1e-9)
-
-
-def test_fused_line_visit_solve_iteration_parity():
-    """cfg4-style mg-CG with the fused line visits (interpret-mode
-    kernels wired onto a CPU context) matches the XLA composition
-    iterate-for-iterate — the end-to-end check that the line-visit
-    closures in solvers/context._build_visits are numerically inert."""
-    from multigrid_petsc_tpu.ops.pallas.line_kernel import (
-        collapse_stencil,
-        line_visit9_pallas,
-    )
-    from multigrid_petsc_tpu.solvers.context import build_context
-    from multigrid_petsc_tpu.solvers.krylov import solve_mgcg
-
-    cfg = SolverConfig(npts=257, grids=5, levels=5, cycle=CycleType.MGCG,
-                       problem="aniso", aniso=(1.0, 0.0, 100.0, 0.0, 0.0),
-                       smoother=SmootherType.LINE_Y, dtype="float64",
-                       rtol=1e-8, max_iter=30)
-    ctx = build_context(cfg)
-    ref = solve_mgcg(ctx)
-
-    st0 = collapse_stencil(ctx.levels[0].stencils[0])
-    omega = cfg.omega
-
-    def visit_down(b, u, sweeps):
-        u0, rc1 = line_visit9_pallas(
-            st0, b[0], None if u is None else u[0], sweeps, omega,
-            emit="rc", interpret=True)
-        return (u0,), rc1
-
-    def visit_up(b, u, e_c, sweeps, emit_r=False):
-        out = line_visit9_pallas(st0, b[0], u[0], sweeps, omega,
-                                 emit="ur" if emit_r else "u",
-                                 e_coarse=e_c, interpret=True)
-        if emit_r:
-            return (out[0],), (out[1],)
-        return (out,)
-
-    ctx.levels[0].visit_down = visit_down
-    ctx.levels[0].visit_up = visit_up
-    got = solve_mgcg(ctx)
-    assert int(got.iters) == int(ref.iters)
-    np.testing.assert_allclose(np.asarray(got.rnorm_history),
-                               np.asarray(ref.rnorm_history),
-                               rtol=1e-8, atol=1e-12)
-    np.testing.assert_allclose(np.asarray(got.u[0]), np.asarray(ref.u[0]),
-                               rtol=1e-9, atol=1e-12)

@@ -28,17 +28,6 @@ def test_view_solver_sparse_backend():
     assert "sparse(" in out and "nnz=" in out
 
 
-def test_view_solver_dist_backend():
-    from multigrid_petsc_tpu.parallel.device_mesh import row_plan
-
-    cfg = SolverConfig(npts=129, grids=3, levels=3, max_iter=30,
-                       backend="pallas")
-    res = solve(cfg, plan=row_plan(min_local=8))
-    out = view_solver(res.ctx)
-    assert "pallas-dist(shard_map x8" in out
-    assert "pad=1" in out
-
-
 @pytest.mark.parametrize("cycle", [CycleType.ICYCLE, CycleType.ECYCLE])
 def test_merged_cycle_more_norm_monitor(cycle):
     """moreNorm on I/E cycles records global + per-grid residual norms per

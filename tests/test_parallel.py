@@ -1,6 +1,6 @@
 """Distribution tests on the 8-virtual-device CPU mesh.
 
-The TPU-world analogue of the reference's `mpirun -n P` testing (SURVEY.md
+The single-host analogue of the reference's `mpirun -n P` testing (SURVEY.md
 section 4 item 5): the same solves must produce identical answers on a
 2-D sharded device mesh, with coarse levels agglomerated.
 """

@@ -78,72 +78,6 @@ def test_nnz_counts():
 
 
 # ---------------------------------------------------------------------------
-# DIA (diagonal) storage + Pallas shifted-multiply SpMV kernel.
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("mesh_type", [0, 2])
-@pytest.mark.parametrize("npts", [17, 33])
-def test_dia_spmv_matches_ell(mesh_type, npts):
-    """Banded level operator: DIA kernel (interpret) == ELL gather."""
-    op = SparseLevelOp(npts, mesh_type, (0,))
-    assert op.dia is not None, "1-grid operator must be DIA-shaped"
-    offs, _ = op.dia
-    assert set(offs) <= {-(npts - 2), -1, 0, 1, npts - 2}
-    x = _random_state(op.shapes, seed=npts)
-    ref = op.apply(x)  # ELL path off-TPU
-    got = op.apply(x, force_dia=True)
-    for a, b in zip(got, ref):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-12, atol=1e-9)
-
-
-def test_dia_rejects_composite():
-    """Composite coupling blocks are not constant-diagonal: the op must
-    fall back to ELL."""
-    op = SparseLevelOp(17, 0, (0, 1))
-    assert op.dia is None
-    with pytest.raises(ValueError):
-        SparseLevelOp(17, 0, (0, 1), backend="dia")
-
-
-def test_dia_flat_shift_correctness():
-    """Random banded matrix with offsets straddling lane boundaries."""
-    from multigrid_petsc_tpu.ops.pallas.spmv_dia import (
-        LANES, dia_from_csr, dia_spmv_pallas,
-    )
-
-    rng = np.random.default_rng(7)
-    n = 2 * LANES + 137  # force ragged final lane row
-    offsets = (-LANES - 3, -1, 0, 2, LANES)
-    k = len(offsets)
-    vals = rng.standard_normal((k, n))
-    # Zero out entries whose column falls outside [0, n).
-    cols = np.arange(n)[None, :] + np.asarray(offsets)[:, None]
-    vals[(cols < 0) | (cols >= n)] = 0.0
-    x = rng.standard_normal(n)
-    ref = np.zeros(n)
-    for i, d in enumerate(offsets):
-        lo, hi = max(0, -d), min(n, n - d)
-        ref[lo:hi] += vals[i, lo:hi] * x[lo + d : hi + d]
-    got = dia_spmv_pallas(offsets, jnp.asarray(vals), jnp.asarray(x),
-                          interpret=True)
-    np.testing.assert_allclose(np.asarray(got), ref, rtol=1e-12, atol=1e-12)
-
-
-def test_stencil_form_explicit_matches():
-    """Grid-patterned banded matrix lowers to the field-coefficient
-    stencil kernel; interpret-mode result == ELL gather."""
-    op = SparseLevelOp(33, 1, (0,))
-    assert op.stencil_form is not None
-    x = _random_state(op.shapes, seed=3)
-    ref = op.apply(x)
-    got = op.apply(x, force_dia=True)
-    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(ref[0]),
-                               rtol=1e-12, atol=1e-9)
-
-
-# ---------------------------------------------------------------------------
 # backend="sparse": full solves over the explicit assembled operator
 # (reference: the solve ALWAYS runs over explicit level matrices,
 # src/solver.c:489-556 + MatMult everywhere).

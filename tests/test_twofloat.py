@@ -1,6 +1,6 @@
 """Two-float32 (double-single) arithmetic + the float32x2 outer PCG.
 
-The float32x2 outer is the TPU-native fast path for the 1e-8 residual
+The float32x2 outer is the double-single route to the 1e-8 residual
 certification (BASELINE.md "wall time to 1e-8"): double-single EFT
 arithmetic at f32 bandwidth instead of emulated f64.  Certification
 oracle: the TRUE residual of the returned solution evaluated with the
@@ -202,3 +202,37 @@ class TestFloat32x2Outer:
         assert res.converged
         assert res.iters < res0.iters + 6  # warm start helps
         assert _true_rel_residual(res, cfg) <= 1.2e-8
+
+
+def test_from_f64_split_is_exact_and_normalized():
+    """hi + lo reproduces x to 2^-47 and |lo| <= ulp(hi)/2, across 16
+    decades of magnitude."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from multigrid_petsc_tpu.ops import twofloat as tf
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(4096) * 10.0 ** rng.uniform(-8, 8, 4096)
+    t = jax.jit(tf.from_f64)(jnp.asarray(x))
+    hi, lo = np.asarray(t.hi), np.asarray(t.lo)
+    back = hi.astype(np.float64) + lo.astype(np.float64)
+    assert np.max(np.abs(back - x) / np.abs(x)) <= 2.0 ** -47
+    assert np.all(np.abs(lo) <= np.spacing(np.abs(hi)) / 2)
+
+
+def test_from_f64_has_no_f32_round_trip():
+    """The split must not convert an f32 value back to f64: XLA may fold
+    that round trip away (the GPU compiler does) and zero the low part."""
+    import jax
+    import jax.numpy as jnp
+
+    from multigrid_petsc_tpu.ops import twofloat as tf
+
+    jaxpr = jax.make_jaxpr(tf.from_f64)(jnp.ones(8, jnp.float64)).jaxpr
+    ups = [e for e in jaxpr.eqns
+           if e.primitive.name == "convert_element_type"
+           and e.invars[0].aval.dtype == jnp.float32
+           and e.params["new_dtype"] == jnp.float64]
+    assert not ups

@@ -115,7 +115,7 @@ def test_rnorm_history_semantics():
 
 def test_mixed_precision_outer():
     """f32 MG + f64 defect-correction outer: certifies residuals far below
-    the f32 floor (the path to BASELINE's 1e-8 on TPU)."""
+    the f32 floor (the path to BASELINE's 1e-8)."""
     import jax.numpy as jnp
     from multigrid_petsc_tpu.ops.stencil import apply_stencil5
     from multigrid_petsc_tpu.problems import (
@@ -206,7 +206,7 @@ def test_checkpoint_resume():
 
 def test_bf16_preconditioner_mgcg():
     """cfg.precond_dtype='bfloat16': the V-cycle preconditioner runs in
-    bf16 (half the HBM bytes) while the CG outer keeps full accuracy —
+    bf16 (half the memory bytes) while the CG outer keeps full accuracy —
     converges to the same tolerance with at most a few extra iterations."""
     import dataclasses
 
